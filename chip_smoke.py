@@ -2,6 +2,7 @@
 GPU: the quickest proof that the port still starts on the card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --only split,split_depth,stem   # kernel phases
 
 Phases (any failure exits non-zero; no exception is swallowed):
   1. the card's name and power limit, as nvidia-smi reports them;
@@ -12,8 +13,11 @@ Phases (any failure exits non-zero; no exception is swallowed):
      version's time, its bound and, where one PyTorch call computes the
      same function, that call's time:
      - split warp: B=8, 512x512 uint8 canvases -> 257x257, m 256, bf16 and
-       f32 weights, full and smaller extents; and its depth instantiation:
-       (64, 424, 512, 1) f32 raw-depth canvases, f32 weights;
+       f32 weights, full and smaller extents, and B=64 (the training
+       batches); and its depth instantiation: (64, 424, 512, 1) f32
+       raw-depth canvases, f32 weights; each also with budget 0 (every
+       tile from the canvas directly), which must give the same bits, and
+       its over-budget tile counter against tile_footprints' prediction;
      - the four fused-BN kernels: the stem's (1,065,024 x 64, relu) and a
        layer4 tail's (18,496 x 2048, residual + relu) (M, C), bf16 and f32;
      - the banded warp at stage B of the split warp, (64, C, 256, 256) f32
@@ -59,9 +63,12 @@ Phases (any failure exits non-zero; no exception is swallowed):
      trained run's; a profiled test batch and a profiled train step (no
      stem kernel in it).
 The stem kernel's own phase (after the renorm pair's) holds it against its
-plain version at (64, Cin, 257, 257) for Cin 4, 3 and 1.
+plain version at (64, Cin, 257, 257) for Cin 4, 3 and 1 and at the serving
+shape (8, 4, 257, 257).
 Kernel launch counts are set to 0 just before each main path and read just
-after it. Then one JSON line {"kernels": [...]} and, last, the JSON line
+after it; around each main path the split kernel's over-budget counter
+must equal tile_footprints' prediction on the path's own inputs (0).
+Then one JSON line {"kernels": [...]} and, last, the JSON line
 {"ok": true, "device": {...}}.
 
 All data and weights are generated from fixed seeds; nothing is fetched.
@@ -109,9 +116,13 @@ DEPTH_STEPS = 4                    # depth-engine steps per epoch
 # the depth stream: Kinect v2 depth frames (NTU RGB+D), batch 64
 DEPTH_B, DEPTH_H, DEPTH_W = 64, 424, 512
 # the stem kernel against its plain version: the same exact bf16 x bf16
-# products summed in f32 in another order, within STEM_TOL of each
-# output's sum of |terms|
-STEM_TOL = 1e-6
+# products summed in f32 on the tensor cores in another order than cuDNN's
+# (and, within a k-group, aligned to the largest exponent before the adds):
+# a sum of K f32 terms is within K * 2^-23 of its sum of |terms|
+def stem_tol(cin):
+    return 49 * cin * 2.0 ** -23
+
+
 # the entry point's store: Panoptic HD frames, 4 train steps and 2 test
 # batches of 64 per epoch
 ENTRY_HD = (1080, 1920)
@@ -285,14 +296,74 @@ def card_line():
     return proc.stdout.strip().splitlines()[0]
 
 
+def split_timing(canvases, residual, scale, extents, m, post, wdtype,
+                 flush):
+    """The split kernel alone at one shape (scalars packed once, bare
+    uncounted launches, L2 flushed before each, profiler records), its
+    plain version between CUDA events and its bound on these inputs.
+    Returns a dict of the numbers and the pixels read."""
+    from pose_tpu_torch.ops import warp_cuda
+
+    b, _, _, n_ch = canvases.shape
+    out = torch.empty((b, n_ch, SIDE, SIDE), dtype=torch.float32,
+                      device=canvases.device)
+    scal = warp_cuda.pack_scalars(residual, scale, extents)
+    args = (canvases, residual, scale, extents, (SIDE, SIDE), m, post, wdtype)
+
+    def bare():
+        warp_cuda.launch(canvases, scal, out, m, post, wdtype)
+
+    ms = kernel_ms(bare, 'split_warp_kernel', 50, flush)
+    plain_ms = time_ms(lambda: warp_cuda.split_warp_plain(*args), 5, flush)
+    n_bytes, n_flops, read = split_warp_work(canvases, residual, scale,
+                                             extents, (SIDE, SIDE), m)
+    bound, by = bound_of(n_bytes, n_flops)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                n_bytes=n_bytes, n_flops=n_flops, read=int(read.sum()))
+
+
+def staged_vs_direct(args, label):
+    """The split kernel through its wrapper (tiles staged in shared memory
+    within warp_cuda.SMEM_BUDGET) and with budget 0 (every tile from the
+    canvas directly): the outputs must be equal bit for bit, and the
+    kernel's over-budget counter must equal tile_footprints' prediction
+    for each budget. Returns the wrapper's output."""
+    from pose_tpu_torch.ops import warp_cuda
+
+    canvases, residual, scale, extents, out_hw, m, post, wdtype = args
+    dev = canvases.device
+    n_ch, elem = canvases.shape[3], canvases.element_size()
+    warp_cuda.over_budget_tiles(dev, reset=True)
+    out = warp_cuda.split_warp(*args)
+    over = warp_cuda.over_budget_tiles(dev, reset=True)
+    direct = torch.empty_like(out)
+    warp_cuda.launch(canvases, warp_cuda.pack_scalars(residual, scale,
+                                                      extents),
+                     direct, m, post, wdtype, budget=0)
+    over0 = warp_cuda.over_budget_tiles(dev, reset=True)
+    want = [warp_cuda.over_budget_count(residual, scale, extents, out_hw, m,
+                                        n_ch, elem, budget)
+            for budget in (warp_cuda.SMEM_BUDGET, 0)]
+    same = torch.equal(out, direct)
+    print(f'split_warp {label}: staged == direct (budget 0) bit for bit: '
+          f'{same}; over-budget tiles {over} (predicted {want[0]}), with '
+          f'budget 0 {over0} (predicted {want[1]})', flush=True)
+    check(same, f'split_warp {label}: staged and direct tiles differ')
+    check([over, over0] == want, f'split_warp {label}: over-budget tiles '
+          f'{[over, over0]}, predicted {want}')
+    return out
+
+
 def split_warp_phase(dev):
-    """Kernel phase of the split warp at the serving shape."""
+    """Kernel phase of the split warp at the serving shape (B=8: bf16 and
+    f32 weights, full and smaller extents, against the plain version) and
+    at the training shape (B=64, the train, distill and entry batches)."""
     from pose_tpu_torch.ops import warp, warp_cuda
 
     rng = np.random.RandomState(SEED)
     m = warp.split_defaults((SIDE, SIDE))[0]
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
-    errs, ms, plain_ms, bound, bound_by = {}, None, None, None, None
+    errs, shapes = {}, {}
     for small in (False, True):
         frames, homs, ext = make_frames(rng, B, CANVAS, SIDE, small)
         check(warp.split_band_ok(homs, (SIDE, SIDE)),
@@ -304,51 +375,59 @@ def split_warp_phase(dev):
         for wdtype in (torch.bfloat16, torch.float32):
             args = (canvases, residual, scale, extents, (SIDE, SIDE), m,
                     1.0 / 255.0, wdtype)
-            out = warp_cuda.split_warp(*args)
+            name = f'{"extents" if small else "full"}/{str(wdtype)[6:]}'
+            out = staged_vs_direct(args, name)
             ref = warp_cuda.split_warp_plain(*args)
             torch.cuda.synchronize()
             check(out.shape == (B, 3, SIDE, SIDE) and out.dtype ==
                   torch.float32, f'split_warp output {tuple(out.shape)}')
             check(bool(torch.isfinite(out).all()), 'split_warp non-finite')
             err = float((out - ref).abs().max())
-            name = f'{"extents" if small else "full"}/{str(wdtype)[6:]}'
             errs[name] = err
             print(f'split_warp {name}: max_abs_err {err:.3g} '
                   f'(tol {KERNEL_TOL:g})', flush=True)
             check(err <= KERNEL_TOL, f'split_warp {name} disagrees with its '
                   f'plain version: {err} > {KERNEL_TOL}')
-            if not small and wdtype == torch.bfloat16:
-                # the serving configuration: uint8 canvases, bf16 weights.
-                # The kernel alone: scalars packed once, then bare launches
-                # (warp_cuda.launch, uncounted) timed by the profiler
-                scal = warp_cuda.pack_scalars(residual, scale, extents)
-
-                def bare():
-                    warp_cuda.launch(canvases, scal, out, m, 1.0 / 255.0,
-                                     wdtype)
-
-                ms = kernel_ms(bare, 'split_warp_kernel', 50, flush)
-                ms_warm = kernel_ms(bare, 'split_warp_kernel', 50)
-                # cross-check: 50 bare launches queued between two events
-                ms_queued = time_ms(lambda: [bare() for _ in range(50)],
-                                    5) / 50
-                plain_ms = time_ms(lambda: warp_cuda.split_warp_plain(*args),
-                                   10, flush)
-                n_bytes, n_flops, read = split_warp_work(
-                    canvases, residual, scale, extents, (SIDE, SIDE), m)
-                bound, bound_by = bound_of(n_bytes, n_flops)
-                print(f'split_warp serving shape: kernel {ms:.5f} ms (L2 '
-                      f'flushed), {ms_warm:.5f} ms (L2 warm), '
-                      f'{ms_queued:.5f} ms each of 50 queued (events); plain '
-                      f'{plain_ms:.4f} ms (events); bound {bound:.5f} ms by '
-                      f'{bound_by} ({n_bytes} B: {int(read.sum())} canvas '
-                      f'pixels read of {B * CANVAS * CANVAS}; {n_flops} '
-                      'flop)', flush=True)
+        # the serving configuration: uint8 canvases, bf16 weights
+        if not small:
+            shapes[f'serve {B}x{CANVAS}^2x3 u8'] = split_timing(
+                canvases, residual, scale, extents, m, 1.0 / 255.0,
+                torch.bfloat16, flush)
+    # the training shape: the train, distill and entry batches of 64
+    frames, homs, ext = make_frames(rng, TRAIN_B, CANVAS, SIDE, True)
+    check(warp.split_band_ok(homs, (SIDE, SIDE)),
+          'training homographies must pass the split gate')
+    canvases = torch.as_tensor(frames).to(dev)
+    extents = torch.as_tensor(ext).to(dev)
+    residual, scale = warp.decompose_homography(
+        torch.as_tensor(homs).to(dev), (SIDE, SIDE), m)
+    args = (canvases, residual, scale, extents, (SIDE, SIDE), m, 1.0 / 255.0,
+            torch.bfloat16)
+    err = float((staged_vs_direct(args, f'train B={TRAIN_B}')
+                 - warp_cuda.split_warp_plain(*args)).abs().max())
+    errs[f'train B={TRAIN_B}'] = err
+    check(err <= KERNEL_TOL, f'split_warp at B={TRAIN_B} disagrees with its '
+          f'plain version: {err} > {KERNEL_TOL}')
+    shapes[f'train {TRAIN_B}x{CANVAS}^2x3 u8'] = split_timing(
+        canvases, residual, scale, extents, m, 1.0 / 255.0, torch.bfloat16,
+        flush)
+    for name, t in shapes.items():
+        print(f'split_warp {name}: kernel {t["ms"]:.5f} ms (L2 flushed); '
+              f'plain {t["plain_ms"]:.4f} ms (events); bound '
+              f'{t["bound_ms"]:.5f} ms by {t["bound_by"]} ({t["n_bytes"]} B:'
+              f' {t["read"]} canvas pixels read; {t["n_flops"]} flop); '
+              f'{100 * t["bound_ms"] / t["ms"]:.1f} % of the bound',
+              flush=True)
+    serve = shapes[f'serve {B}x{CANVAS}^2x3 u8']
     return dict(name='split_warp', route='cuda',
                 source='pose_tpu_torch/csrc/split_warp.cu',
                 replaces='pose_tpu/ops/warp_pallas.py:231',
-                max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms,
-                bound_ms=bound, bound_by=bound_by, library_ms=None)
+                max_abs_err=max(errs.values()), ms=serve['ms'],
+                plain_ms=serve['plain_ms'], bound_ms=serve['bound_ms'],
+                bound_by=serve['bound_by'], library_ms=None,
+                shapes={k: {f: v[f] for f in ('ms', 'plain_ms', 'bound_ms',
+                                              'bound_by')}
+                        for k, v in shapes.items()})
 
 
 def reference_phase(dev):
@@ -404,10 +483,58 @@ def reference_phase(dev):
     check(abs_err <= 1.0, f'absolute differs: {abs_err}')
 
 
+class SplitTiles:
+    """Around a main path: records the inputs of each split-kernel launch (a
+    shim on warp_cuda.launch, which the wrapper calls, that calls it
+    unchanged), zeroes the kernel's over-budget counter before the path
+    and, after it, checks that the counter equals the tiles
+    warp_cuda.tile_footprints puts over the budget on the same inputs: 0
+    for the loader's crops."""
+
+    def __init__(self, name, dev):
+        self.name, self.dev = name, dev
+
+    def __enter__(self):
+        from pose_tpu_torch.ops import warp_cuda
+        self.mod, self.orig, self.calls = warp_cuda, warp_cuda.launch, []
+        warp_cuda.over_budget_tiles(self.dev, reset=True)
+
+        def recording(canvases, scal, out, m, *rest, **kw):
+            self.calls.append((canvases.shape[3], canvases.element_size(),
+                               scal.detach().clone(), tuple(out.shape[2:]),
+                               m))
+            return self.orig(canvases, scal, out, m, *rest, **kw)
+
+        warp_cuda.launch = recording
+        return self
+
+    def __exit__(self, kind, value, tb):
+        self.mod.launch = self.orig
+        if kind is not None:
+            return False
+        over = self.mod.over_budget_tiles(self.dev)
+        predicted, tiles = 0, 0
+        for n_ch, elem, scal, out_hw, m in self.calls:
+            # the (B, 15) rows of pack_scalars: [R (9) | scale (4) | extents]
+            scal = scal.cpu()
+            residual = scal[:, :9].reshape(-1, 3, 3)
+            scale, extents = scal[:, 9:13].reshape(-1, 2, 2), scal[:, 13:]
+            fp = self.mod.tile_footprints(residual, scale, extents, out_hw, m)
+            need = self.mod.staged_bytes(fp, scale, extents, n_ch, elem)
+            predicted += int((need > self.mod.SMEM_BUDGET).sum())
+            tiles += need.numel()
+        print(f'{self.name}: split warp over-budget tiles {over} (predicted '
+              f'{predicted}) of {tiles} in {len(self.calls)} launches',
+              flush=True)
+        check(over == predicted == 0, f'{self.name}: {over} split-warp tiles '
+              f'over the budget, {predicted} predicted')
+        return False
+
+
 def serve_phase(dev):
     """The main path at full width. Returns the launch counts."""
     from pose_tpu_torch import serve
-    from pose_tpu_torch.ops import warp_cuda
+    from pose_tpu_torch.ops import stem, warp_cuda
 
     rng = np.random.RandomState(SEED + 2)
     frames, homs, ext = make_frames(rng, N_FRAMES, CANVAS, SIDE, True)
@@ -418,8 +545,10 @@ def serve_phase(dev):
     pre = serve.GatedPreprocessor(SIDE, device=dev)
 
     warp_cuda.split_warp.launches = 0
+    stem.stem_conv.launches = 0
     batch_ms, answers, batches = [], [], []
-    with serve.BatchingServer(predictor, max_delay_ms=50.0) as server:
+    with SplitTiles('serve', dev), serve.BatchingServer(
+            predictor, max_delay_ms=50.0) as server:
         for i in range(0, N_FRAMES, B):
             t0 = time.perf_counter()
             crops = pre(frames[i:i + B], homs[i:i + B], ext[i:i + B])
@@ -431,7 +560,8 @@ def serve_phase(dev):
     direct = [predictor.predict_crops(c) for c in batches]
     absolute = predictor.predict_absolute(batches[0], intr)
     torch.cuda.synchronize()
-    launches = {'split_warp': warp_cuda.split_warp.launches}
+    launches = {'split_warp': warp_cuda.split_warp.launches,
+                'stem_conv': stem.stem_conv.launches}
 
     print(f'serve: {served} requests in {n_batches} batches, '
           f'{pre.split_batches} split-warp batches, {pre.mxu_batches} mxu '
@@ -446,6 +576,11 @@ def serve_phase(dev):
     check(launches['split_warp'] == pre.split_batches,
           f'split_warp launched {launches["split_warp"]} times for '
           f'{pre.split_batches} warped batches')
+    # the Predictor's bf16 forwards: 8 served batches, 8 predict_crops and
+    # predict_absolute's
+    print(f'serve: stem kernel launches {launches["stem_conv"]}', flush=True)
+    check(launches['stem_conv'] > 0, 'the stem kernel was not launched on '
+          'the serving path')
     worst = {'relat_cam': 0.0, 'spec_mat': 0.0}
     for got, ref in zip(answers, direct):
         for j, ans in enumerate(got):
@@ -808,7 +943,7 @@ def split_warp_depth_phase(dev):
         torch.as_tensor(homs).to(dev), (SIDE, SIDE), m)
     args = (canvases, residual, scale, extents, (SIDE, SIDE), m, 1.0,
             torch.float32)
-    out = warp_cuda.split_warp(*args)
+    out = staged_vs_direct(args, 'depth')
     ref = warp_cuda.split_warp_plain(*args)
     torch.cuda.synchronize()
     check(out.shape == (DEPTH_B, 1, SIDE, SIDE), f'depth split output '
@@ -820,25 +955,18 @@ def split_warp_depth_phase(dev):
     print(f'split_warp depth (64, 424, 512, 1) f32 -> 257^2: max_abs_err '
           f'{err:.3g} m (tol {tol:g})', flush=True)
     check(err <= tol, f'depth split disagrees with its plain version: {err}')
-    scal = warp_cuda.pack_scalars(residual, scale, extents)
-
-    def bare():
-        warp_cuda.launch(canvases, scal, out, m, 1.0, torch.float32)
-
-    ms = kernel_ms(bare, 'split_warp_kernel', 50, flush)
-    plain_ms = time_ms(lambda: warp_cuda.split_warp_plain(*args), 5, flush)
-    n_bytes, n_flops, read = split_warp_work(canvases, residual, scale,
-                                             extents, (SIDE, SIDE), m)
-    bound, by = bound_of(n_bytes, n_flops)
-    print(f'split_warp depth: kernel {ms:.5f} ms (L2 flushed), plain '
-          f'{plain_ms:.4f} ms, bound {bound:.5f} ms by {by} ({n_bytes} B: '
-          f'{int(read.sum())} canvas pixels read of '
-          f'{DEPTH_B * DEPTH_H * DEPTH_W}; {n_flops} flop)', flush=True)
+    t = split_timing(canvases, residual, scale, extents, m, 1.0,
+                     torch.float32, flush)
+    print(f'split_warp depth: kernel {t["ms"]:.5f} ms (L2 flushed), plain '
+          f'{t["plain_ms"]:.4f} ms, bound {t["bound_ms"]:.5f} ms by '
+          f'{t["bound_by"]} ({t["n_bytes"]} B: {t["read"]} canvas pixels '
+          f'read of {DEPTH_B * DEPTH_H * DEPTH_W}; {t["n_flops"]} flop); '
+          f'{100 * t["bound_ms"] / t["ms"]:.1f} % of the bound', flush=True)
     return dict(name='split_warp_depth', route='cuda',
                 source='pose_tpu_torch/csrc/split_warp.cu',
                 replaces=REPLACES['split_warp_depth'], max_abs_err=err,
-                ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                library_ms=None)
+                ms=t['ms'], plain_ms=t['plain_ms'], bound_ms=t['bound_ms'],
+                bound_by=t['bound_by'], library_ms=None)
 
 
 def admitted_homs(rng, n, canvas, side_in, band=32):
@@ -1289,12 +1417,13 @@ def train_phase(dev):
     fused_bn.dy_rows.copies = 0
     t0 = time.perf_counter()
     records = []
-    for epoch, batches in enumerate(epochs, start=1):
-        records.append(trainer.train(epoch, batches))
-        end = torch.cuda.Event(enable_timing=True)
-        end.record()
-        batches.events.append(end)
-    torch.cuda.synchronize()
+    with SplitTiles('train', dev):
+        for epoch, batches in enumerate(epochs, start=1):
+            records.append(trainer.train(epoch, batches))
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            batches.events.append(end)
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in kernels.items()}
     dy_copies = fused_bn.dy_rows.copies
@@ -1557,9 +1686,10 @@ class DepthBatches:
 
 
 def depth_kernels():
-    from pose_tpu_torch.ops import (fused_bn_cuda, partial_conv, warp_banded,
-                                    warp_cuda)
+    from pose_tpu_torch.ops import (fused_bn_cuda, partial_conv, stem,
+                                    warp_banded, warp_cuda)
     return {'split_warp': warp_cuda.split_warp,
+            'stem_conv': stem.stem_conv,
             'banded_warp': warp_banded.banded_warp,
             'full_warp': warp_banded.full_warp, **partial_conv.KERNELS,
             **fused_bn_cuda.KERNELS}
@@ -1619,12 +1749,13 @@ def distill_phase(dev):
     zero_launches(kernels)
     t0 = time.perf_counter()
     records = []
-    for epoch, batches in enumerate(epochs, start=1):
-        records.append(trainer.train(epoch, batches))
-        end = torch.cuda.Event(enable_timing=True)
-        end.record()
-        batches.events.append(end)
-    torch.cuda.synchronize()
+    with SplitTiles('distill', dev):
+        for epoch, batches in enumerate(epochs, start=1):
+            records.append(trainer.train(epoch, batches))
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            batches.events.append(end)
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_launches(kernels)
     step_ms = [t for b in epochs for t in b.step_ms()]
@@ -1679,6 +1810,10 @@ def distill_phase(dev):
         check(launches[k] > 0, f'{k} not launched on the distill path')
     check(launches['full_warp'] == launches['renorm_fwd'] == 0,
           'kernels off the distill path were launched')
+    # the teacher's bf16 forward under no_grad: conv1 (Cin 3) and conv2
+    # (Cin 1) each step; the student's stem is recorded by autograd
+    check(launches['stem_conv'] > 0, 'the stem kernel was not launched in '
+          'the teacher\'s forwards')
     distill_breakdown(trainer, epochs[0],
                       schedules.depth_learn_rate(args, 2))
     return launches
@@ -1754,11 +1889,12 @@ def partial_depth_phase(dev):
         device=dev)
     kernels = depth_kernels()
     zero_launches(kernels)
-    rec = trainer.train(1, batches)
-    end = torch.cuda.Event(enable_timing=True)
-    end.record()
-    batches.events.append(end)
-    torch.cuda.synchronize()
+    with SplitTiles('partial_depth', dev):
+        rec = trainer.train(1, batches)
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        batches.events.append(end)
+        torch.cuda.synchronize()
     launches = read_launches(kernels)
     step_ms = batches.step_ms()
     rest = float(np.median(step_ms[1:]))
@@ -1772,6 +1908,10 @@ def partial_depth_phase(dev):
     check(launches['split_warp_depth'] == batches.split_batches > 0,
           'the depth split kernel was not launched on the partial path')
     check(launches['fused_bn_stats'] > 0, 'fused BN not launched')
+    # its stem is a partial convolution (no StemConv), and the train step
+    # records autograd
+    check(launches['stem_conv'] == 0, 'the stem kernel ran on the '
+          'partial_depth path')
     batch = trainer._place(batches.batch(batches.items[0]),
                            ('depth', 'true_cam', 'true_val'))
     batch['in_image'] = batch.pop('depth')
@@ -1802,19 +1942,21 @@ def stem_work(x, out_dtype):
 def stem_phase(dev):
     """Kernel phase of the stem conv at the test epoch's shape, (64, Cin,
     257, 257) bf16 with seeded weights for Cin = 4 (the extra-channel stem),
-    3 and 1: stem_conv_fwd on the padded planar input (f32 out) and the
-    model route on the channels_last input (bf16 out) against the plain
-    version, the bf16 output against the rounded f32 output; then the
-    kernel alone, its plain version, cuDNN's bf16 F.conv2d and the bound."""
+    3 and 1 (the distillation teacher's conv1 and conv2), and at the serving
+    shape (8, 4, 257, 257): stem_conv_fwd on the padded planar input (f32
+    out) and the model route on the channels_last input (bf16 out) against
+    the plain version, the bf16 output against the rounded f32 output; then
+    the kernel alone, its plain version, cuDNN's bf16 F.conv2d and the
+    bound."""
     import torch.nn.functional as F
 
     from pose_tpu_torch.ops import stem
 
     g = torch.Generator(device=dev).manual_seed(SEED + 12)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
-    err, row = 0.0, None
-    for cin in (4, 3, 1):
-        x = torch.randn((TRAIN_B, cin, SIDE, SIDE), generator=g,
+    err, shapes = 0.0, {}
+    for b, cin in ((TRAIN_B, 4), (TRAIN_B, 3), (TRAIN_B, 1), (B, 4)):
+        x = torch.randn((b, cin, SIDE, SIDE), generator=g,
                         device=dev).to(torch.bfloat16)
         w = (torch.randn((7, 7, cin, 64), generator=g, device=dev)
              * 0.05).to(torch.bfloat16)
@@ -1830,12 +1972,14 @@ def stem_phase(dev):
         cin_err = float((out - ref).abs().max())
         same = torch.equal(out_bf, out.to(torch.bfloat16))
         err = max(err, cin_err)
+        tol = stem_tol(cin)
         del ref, mag
         o32 = torch.empty_like(out)
         o16 = torch.empty_like(out_bf)
-        ms32 = kernel_ms(lambda: stem.launch(x, w, o32), 'stem_conv_kernel',
+        wp = stem.pack_weight(w)
+        ms32 = kernel_ms(lambda: stem.launch(x, wp, o32), 'stem_conv_kernel',
                          20, flush)
-        ms16 = kernel_ms(lambda: stem.launch(x_cl, w, o16),
+        ms16 = kernel_ms(lambda: stem.launch(x_cl, wp, o16),
                          'stem_conv_kernel', 20, flush)
         plain_ms = time_ms(lambda: stem.stem_conv_plain(x_cl, oihw), 10,
                            flush)
@@ -1844,26 +1988,29 @@ def stem_phase(dev):
                                           padding=3), 10, flush)
         b32 = bound_of(*stem_work(x, torch.float32), BF16_FLOP_PER_S)
         b16 = bound_of(*stem_work(x, torch.bfloat16), BF16_FLOP_PER_S)
-        print(f'stem_conv ({TRAIN_B}, {cin}, {SIDE}, {SIDE}) bf16: max_abs_err '
-              f'{cin_err:.3g}, {ratio:.3g} of sum |terms| (tol {STEM_TOL:g});'
-              f' bf16 out == rounded f32 out: {same}; kernel {ms32:.5f} ms '
-              f'(planar in, f32 out; bound {b32[0]:.5f} ms by {b32[1]}), '
-              f'{ms16:.5f} ms (channels_last in, bf16 out, the model route; '
-              f'bound {b16[0]:.5f} ms by {b16[1]}); plain {plain_ms:.4f} ms;'
+        print(f'stem_conv ({b}, {cin}, {SIDE}, {SIDE}) bf16: max_abs_err '
+              f'{cin_err:.3g}, {ratio:.3g} of sum |terms| (tol {tol:.3g} = '
+              f'{49 * cin} * 2^-23); bf16 out == rounded f32 out: {same}; '
+              f'kernel {ms32:.5f} ms (planar in, f32 out; bound {b32[0]:.5f} '
+              f'ms by {b32[1]}), {ms16:.5f} ms (channels_last in, bf16 out, '
+              f'the model route; bound {b16[0]:.5f} ms by {b16[1]}, '
+              f'{100 * b16[0] / ms16:.1f} % of it); plain {plain_ms:.4f} ms;'
               f' cuDNN bf16 F.conv2d {lib_ms:.4f} ms', flush=True)
-        check(ratio <= STEM_TOL, f'stem_conv Cin={cin} disagrees with its '
-              f'plain version: {ratio} > {STEM_TOL}')
+        check(ratio <= tol, f'stem_conv Cin={cin} disagrees with its plain '
+              f'version: {ratio} > {tol}')
         check(same, f'stem_conv Cin={cin}: bf16 output is not the rounded '
               'f32 output')
-        if cin == 4:
-            row = dict(name='stem_conv', route='cuda',
-                       source='pose_tpu_torch/csrc/stem_conv.cu',
-                       replaces=REPLACES['stem_conv'], ms=ms16,
-                       plain_ms=plain_ms, bound_ms=b16[0], bound_by=b16[1],
-                       library_ms=lib_ms)
+        shapes[f'{b}x{cin}x{SIDE}^2'] = dict(
+            ms=ms16, ms_f32_out=ms32, plain_ms=plain_ms, bound_ms=b16[0],
+            bound_by=b16[1], library_ms=lib_ms, ratio=ratio, tol=tol)
         del x, x_cl, out, out_bf, o32, o16
-    row['max_abs_err'] = err
-    return row
+    main = shapes[f'{TRAIN_B}x4x{SIDE}^2']
+    return dict(name='stem_conv', route='cuda',
+                source='pose_tpu_torch/csrc/stem_conv.cu',
+                replaces=REPLACES['stem_conv'], max_abs_err=err,
+                ms=main['ms'], plain_ms=main['plain_ms'],
+                bound_ms=main['bound_ms'], bound_by=main['bound_by'],
+                library_ms=main['library_ms'], shapes=shapes)
 
 
 def torchvision_state(path):
@@ -1951,8 +2098,9 @@ def entry_phase(dev, tmp):
         for fn in kernels.values():
             fn.launches = 0
         t0 = time.perf_counter()
-        run = cli.main(argv)
-        torch.cuda.synchronize()
+        with SplitTiles('entry', dev):
+            run = cli.main(argv)
+            torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {k: fn.launches for k, fn in kernels.items()}
         val = cli.main([a for a in argv if a != '-save_record']
@@ -2059,7 +2207,16 @@ def entry_breakdown(run, dev):
           f'the stem kernel ran in a train step: {stem_in_step}')
 
 
-def main():
+def main(argv):
+    """No arguments: every phase. `--only split,split_depth,stem`: the
+    build and those kernel phases, then their rows, and no result line."""
+    only = []
+    if argv[:1] == ['--only'] and len(argv) == 2:
+        only = argv[1].split(',')
+    elif argv:
+        print('usage: chip_smoke.py [--only split,split_depth,stem]',
+              file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; this script runs only on an '
               'NVIDIA GPU', file=sys.stderr)
@@ -2084,6 +2241,13 @@ def main():
           f' (in parallel; {time.perf_counter() - t0:.1f} s in all)',
           flush=True)
 
+    if only:
+        # kernel phases alone, for measuring a kernel between full runs
+        phases = {'split': split_warp_phase, 'split_depth':
+                  split_warp_depth_phase, 'stem': stem_phase}
+        rows = [phases[p](dev) for p in only]
+        print(json.dumps({'kernels': rows}))
+        return 0
     kernels = [split_warp_phase(dev)] + fused_bn_phase(dev)
     depth_rows = [split_warp_depth_phase(dev)]
     banded = banded_warp_phase(dev)
@@ -2109,14 +2273,29 @@ def main():
             k['launches'] = distill[k['name']]
             check(k['launches'] > 0, f'{k["name"]} was not launched on the '
                   'distill path')
-    partial_depth_phase(dev)
+    partial = partial_depth_phase(dev)
     with tempfile.TemporaryDirectory() as tmp:
         entry = entry_phase(dev, tmp)
-    # the stem kernel counts its launches on the entry point's test epochs
-    stem_row['launches'] = entry['stem_conv']
-    check(stem_row['launches'] > 0, 'stem_conv was not launched on the '
-          'entry point\'s test epochs')
+    # the split and stem kernels run on several paths: each path's count,
+    # and their sum as the row's launches
+    by_path = {'split_warp': {'serve': serve_launches['split_warp'],
+                              'train': launches['split_warp'],
+                              'distill': distill['split_warp'],
+                              'entry': entry['split_warp']},
+               'split_warp_depth': {'distill': distill['split_warp_depth'],
+                                    'partial_depth':
+                                        partial['split_warp_depth']},
+               'stem_conv': {'serve': serve_launches['stem_conv'],
+                             'distill': distill['stem_conv'],
+                             'partial_depth': partial['stem_conv'],
+                             'entry': entry['stem_conv']}}
     kernels += depth_rows + [stem_row]
+    for k in kernels:
+        if k['name'] in by_path:
+            k['launches_by_path'] = by_path[k['name']]
+            k['launches'] = sum(by_path[k['name']].values())
+    check(entry['stem_conv'] > 0, 'stem_conv was not launched on the entry '
+          'point\'s test epochs')
 
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
@@ -2126,4 +2305,4 @@ def main():
 
 
 if __name__ == '__main__':
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

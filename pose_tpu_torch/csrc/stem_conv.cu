@@ -16,22 +16,46 @@
 // The TPU kernel reads a zero-padded planar copy, deinterleaves row and
 // column parity with 0/1 selection dots and copies 196 patch rows, all to
 // avoid Mosaic's misaligned relayouts. None of that carries over. Here the
-// input is read through its four strides (so a channels_last NCHW tensor,
-// the model's layout, and the interior of a padded planar array both work)
-// with the 3-pixel zero border applied in the index math. One block takes
-// one image and kTR output rows: it stages the (49 Cin, 64) weight matrix
-// and the 2 kTR + 5 input rows it needs in shared memory as f32, each row
-// split by column parity so that a stride-2 tap is a unit-stride read. Each
-// thread accumulates kP output pixels (ox = g, g + NG, g + 2 NG, ...) times
-// kCPT output channels in f32 registers; the threads of a warp share their
-// channels, so each weight read is a broadcast.
+// conv is an implicit GEMM on the tensor cores: M = the output pixels,
+// N = 64 output channels, K = the taps in the order (kh, kw, ci) with kw
+// padded to 8 and ci to 4 (K = 7 * 8 * 4 = 224 for Cin 3 and 4) or, for
+// Cin 1, (kh, kw) with kh and kw padded to 8 (K = 64). A k-step of 16 then
+// reads 4 neighbouring pixels' 4 channels (or 8 neighbouring pixels of 2
+// rows), and every padded term is zero in both operands: zero in the
+// packed weight (ops/stem.pack_weight), and masked to zero in the A
+// fragment (kw = 7, kh = 7) or staged as zero (ci = 3 of Cin 3), never a
+// value read from outside the tensor.
+//
+// One block takes 1024 consecutive output pixels of one image (NHWC order,
+// so its output is one contiguous run of memory). It stages the packed
+// weight in shared memory in the B-fragment order of
+// mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32 (one 8-byte read per lane
+// and n-tile), and the input rows under its pixels (2 * span + 8 rows for
+// an output span of `span` rows, 8 when 1024 pixels of 129-wide rows) as
+// bf16, channels padded to 4, with the 3-pixel zero border applied in the
+// index math. The input is read through its four strides, so the model's
+// channels_last tensor and the interior of `pad_planar`'s array both work
+// without a copy. No column-parity split is needed: in the A-fragment
+// layout the 32 lanes of a warp read 32 consecutive 32-bit words (pixel
+// 2 ox + kw, channel pair) for every k-step, which no bank serves twice.
+// The staging reads four pixels (or 16-byte weight vectors) per thread
+// before it stores any, so their latencies overlap. Each warp computes 32
+// pixels x 64 channels per round (2 m-tiles x 8 n-tiles of f32
+// accumulators), then writes a bf16 output through a padded per-warp
+// tile in shared memory as 16-byte vectors (full 128-byte lines, one
+// pixel each), and an f32 output straight from the fragments (4 lanes
+// fill each 32-byte sector).
 //
 // Bound on the card, ResNet-50's Cin 4 stem at batch 64, 257^2: 33.8 MB of
-// bf16 input and 272.6 MB of f32 (136.3 MB of bf16) output, 0.09 ms (0.05
-// ms) at 3.35 TB/s, against 26.7 GFLOP, 0.027 ms on the tensor cores. This
-// first cut runs on the CUDA cores (float FMA, 67 TFLOP/s: 0.40 ms at best),
-// rounding each sum as IEEE f32 does; the tensor-core (wgmma, TMA) form is
-// later work.
+// bf16 input and 136.3 MB of bf16 (272.6 MB of f32) output, 0.05 ms
+// (0.09 ms) at 3.35 TB/s, against 26.7 GFLOP, 0.027 ms at the 989 TFLOP/s
+// bf16 tensor rate (30.5 GFLOP with the K padding): the output writes
+// bound it. The first version summed on the CUDA cores (f32 FMA, 0.40 ms at
+// best for the arithmetic alone) and took 1.17 ms; this one takes about
+// 0.12 ms (PERF.md). The tensor cores sum each k-group in
+// their own order (aligning the products to the largest exponent), so the
+// result is within K * 2^-23 of sum |terms| of the plain f32 conv, no
+// longer equal to it bit for bit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -40,135 +64,254 @@
 namespace {
 
 constexpr int kCout = 64;
-constexpr int kTR = 4;                 // output rows per block
-constexpr int kRin = 2 * kTR + 5;      // input rows a block reads
-constexpr int kP = 4;                  // output pixels per thread
-constexpr int kCPT = 16;               // output channels per thread
-constexpr int kNCG = kCout / kCPT;     // channel groups
-constexpr int kMaxThreads = 256;
-constexpr int kMaxSmem = 232448;       // an H100 block's dynamic limit
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kMT = 2;                       // m16 tiles per warp round
+constexpr int kChunk = 16 * kMT;             // output pixels per warp round
+constexpr int kRounds = 4;
+constexpr int kBlockPx = kWarps * kChunk * kRounds;   // 1024
+constexpr int kNT = kCout / 8;               // n8 tiles
+constexpr int kMaxSmem = 232448;             // an H100 block's dynamic limit
+constexpr int kLoads = 4;                    // input pixels in flight
 
-__host__ __device__ inline int groups(int ow) { return (ow + kP - 1) / kP; }
-__host__ __device__ inline int half_width(int ow) {
-  return groups(ow) * kP + 3;
+// K order (kh, kw, ci): KH x 8 x CP, a multiple of 16
+template <int CIN>
+struct Layout {
+  static constexpr int CP = CIN == 1 ? 1 : 4;
+  static constexpr int KH = CIN == 1 ? 8 : 7;
+  static constexpr int K = KH * 8 * CP;
+  static constexpr int KSTEPS = K / 16;
+};
+
+// padded row of the per-warp output tile, in elements: 16-byte aligned,
+// and no bank serves two lanes of one fragment store (bf16 or f32)
+constexpr int kStageStride = kCout + 8;
+
+__host__ __device__ inline int span_max(int ow) {
+  return (kBlockPx + ow - 2) / ow;
 }
 
-__device__ __forceinline__ void store16(float* p, const float* v) {
-  float4* q = reinterpret_cast<float4*>(p);
-#pragma unroll
-  for (int k = 0; k < kCPT / 4; ++k)
-    q[k] = make_float4(v[4 * k], v[4 * k + 1], v[4 * k + 2], v[4 * k + 3]);
+__device__ __forceinline__ void mma16816(float d[4], const uint32_t a[4],
+                                         uint2 b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
 }
 
-__device__ __forceinline__ void store16(__nv_bfloat16* p, const float* v) {
-  uint4 raw[2];
-  __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(raw);
-#pragma unroll
-  for (int k = 0; k < kCPT; ++k) e[k] = __float2bfloat16_rn(v[k]);
-  uint4* q = reinterpret_cast<uint4*>(p);
-  q[0] = raw[0];
-  q[1] = raw[1];
+__device__ __forceinline__ void put2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+__device__ __forceinline__ void put2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
 template <int CIN, typename OutT>
-__global__ void __launch_bounds__(kMaxThreads, 2)
+__global__ void __launch_bounds__(kThreads, 2)
 stem_conv_kernel(const __nv_bfloat16* __restrict__ x, long long sb,
-                 long long sc, long long sh, long long sw,
+                 long long sc, long long sh, long long sw, int vec8,
                  const __nv_bfloat16* __restrict__ w, OutT* __restrict__ out,
                  int H, int W, int OH, int OW) {
-  extern __shared__ float4 smem4[];
-  float* ws = reinterpret_cast<float*>(smem4);     // [49 CIN][64]
-  float* xs = ws + 49 * CIN * kCout;               // [CIN][kRin][2][HW]
-  const int NG = groups(OW);
-  const int HW = half_width(OW);
-  const int ncol = 2 * HW;
+  using L = Layout<CIN>;
+  constexpr int CP = L::CP;
+  constexpr int SS = kStageStride;
+  extern __shared__ uint4 smem16[];
+  const int ncol = 2 * OW + 6;                    // staged column c = ix + 3
+  const int nrow = 2 * span_max(OW) + 8;
+  const int row_words = ncol * CP / 2;
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem16);
+  const uint32_t* xw = reinterpret_cast<const uint32_t*>(smem16);
+  const size_t x_bytes = ((size_t)nrow * ncol * CP * 2 + 15) / 16 * 16;
+  uint2* ws = reinterpret_cast<uint2*>(reinterpret_cast<char*>(smem16)
+                                       + x_bytes);
+  OutT* stage = reinterpret_cast<OutT*>(ws + L::KSTEPS * kNT * 32);
+
   const int b = blockIdx.y;
-  const int oy0 = blockIdx.x * kTR;
-  const int tid = threadIdx.x, nt = blockDim.x;
+  const int npx = OH * OW;
+  const int p0 = blockIdx.x * kBlockPx;
+  const int p1 = min(p0 + kBlockPx, npx);
+  const int oy_first = p0 / OW;
+  const int tid = threadIdx.x;
 
-  for (int i = tid; i < 49 * CIN * kCout; i += nt)
-    ws[i] = __bfloat162float(w[i]);
-  // input rows 2 oy0 - 3 + rr, columns c - 3, zero outside the image;
-  // channel fastest where channels are adjacent in memory (channels_last)
-  const __nv_bfloat16* xb = x + (long long)b * sb;
-  const int iy0 = 2 * oy0 - 3;
-  const int nstage = CIN * kRin * ncol;
-  for (int i = tid; i < nstage; i += nt) {
-    int ci, rr, c;
-    if (sc == 1) {
-      ci = i % CIN;
-      const int rest = i / CIN;
-      c = rest % ncol;
-      rr = rest / ncol;
-    } else {
-      c = i % ncol;
-      const int rest = i / ncol;
-      rr = rest % kRin;
-      ci = rest / kRin;
+  // the packed (K, 64) weight in B-fragment order: for k-step s, n-tile j
+  // and lane (g = lane / 4, t = lane % 4), {w[16 s + 2 t .. + 1][8 j + g],
+  // w[16 s + 8 + 2 t .. + 1][8 j + g]} as bf16 pairs. Read as 16-byte
+  // vectors (8 columns of one row), each scattered to 8 lanes' entries.
+  constexpr int kW4 = L::K * kCout / 8;
+  unsigned short* wsh = reinterpret_cast<unsigned short*>(ws);
+  for (int i0 = 0; i0 < kW4; i0 += kLoads * kThreads) {
+    uint4 v[kLoads];
+#pragma unroll
+    for (int k = 0; k < kLoads; ++k) {
+      const int i = i0 + k * kThreads + tid;
+      if (i < kW4) v[k] = __ldg(reinterpret_cast<const uint4*>(w) + i);
     }
-    const int iy = iy0 + rr, ix = c - 3;
-    float v = 0.f;
-    if (iy >= 0 && iy < H && ix >= 0 && ix < W)
-      v = __bfloat162float(xb[ci * sc + iy * sh + ix * sw]);
-    xs[((ci * kRin + rr) * 2 + (c & 1)) * HW + (c >> 1)] = v;
+#pragma unroll
+    for (int k = 0; k < kLoads; ++k) {
+      const int i = i0 + k * kThreads + tid;
+      if (i >= kW4) continue;
+      const int kk = i >> 3, j = i & 7, kr = kk & 15;
+      const int entry = ((kk >> 4) * kNT + j) * 32 + ((kr & 7) >> 1);
+      const int slot = (kr >> 3) * 2 + (kr & 1);
+      const unsigned short* e = reinterpret_cast<const unsigned short*>(&v[k]);
+#pragma unroll
+      for (int g = 0; g < 8; ++g) wsh[(entry + 4 * g) * 4 + slot] = e[g];
+    }
   }
-  __syncthreads();
-
-  const int items = kTR * kNCG * NG;
-  for (int it = tid; it < items; it += nt) {
-    const int g = it % NG;
-    const int rest = it / NG;
-    const int cg = rest % kNCG;
-    const int r = rest / kNCG;
-    const int oy = oy0 + r;
-    if (oy >= OH) continue;
-    float acc[kP][kCPT];
+  // input rows 2 oy_first - 3 + rr, columns c - 3, zero outside the image
+  // and in the padded channel: one pixel (CP channels) per item, kLoads
+  // items' loads in flight per thread before their stores
+  const __nv_bfloat16* xb = x + (long long)b * sb;
+  const int iy0 = 2 * oy_first - 3;
+  const int npix = nrow * ncol;
+  for (int i0 = 0; i0 < npix; i0 += kLoads * kThreads) {
+    uint2 v[kLoads];
 #pragma unroll
-    for (int p = 0; p < kP; ++p)
+    for (int k = 0; k < kLoads; ++k) {
+      const int i = i0 + k * kThreads + tid;
+      const int rr = i / ncol, c = i - rr * ncol;
+      const int iy = iy0 + rr, ix = c - 3;
+      v[k] = make_uint2(0u, 0u);
+      if (i >= npix || iy < 0 || iy >= H || ix < 0 || ix >= W) continue;
+      const __nv_bfloat16* px = xb + iy * sh + ix * sw;
+      if (CIN == 4 && vec8) {           // channels_last, 8-byte pixels
+        v[k] = __ldg(reinterpret_cast<const uint2*>(px));
+      } else {
+        uint32_t e[4] = {0u, 0u, 0u, 0u};
 #pragma unroll
-      for (int k = 0; k < kCPT; ++k) acc[p][k] = 0.f;
-
-#pragma unroll
-    for (int ci = 0; ci < CIN; ++ci) {
-#pragma unroll 1
-      for (int kh = 0; kh < 7; ++kh) {
-        const float* xe = xs + ((ci * kRin + 2 * r + kh) * 2) * HW + g;
-        const float* xo = xe + HW;
-#pragma unroll
-        for (int kw = 0; kw < 7; ++kw) {
-          const float* xp = ((kw & 1) ? xo : xe) + (kw >> 1);
-          float xv[kP];
-#pragma unroll
-          for (int p = 0; p < kP; ++p) xv[p] = xp[p * NG];
-          const float4* wp = reinterpret_cast<const float4*>(
-              ws + ((kh * 7 + kw) * CIN + ci) * kCout + cg * kCPT);
-#pragma unroll
-          for (int q = 0; q < kCPT / 4; ++q) {
-            const float4 wq = wp[q];
-#pragma unroll
-            for (int p = 0; p < kP; ++p) {
-              acc[p][4 * q] = fmaf(xv[p], wq.x, acc[p][4 * q]);
-              acc[p][4 * q + 1] = fmaf(xv[p], wq.y, acc[p][4 * q + 1]);
-              acc[p][4 * q + 2] = fmaf(xv[p], wq.z, acc[p][4 * q + 2]);
-              acc[p][4 * q + 3] = fmaf(xv[p], wq.w, acc[p][4 * q + 3]);
-            }
-          }
-        }
+        for (int ci = 0; ci < CIN; ++ci)
+          e[ci] = __ldg(reinterpret_cast<const unsigned short*>(px + ci * sc));
+        v[k] = make_uint2(e[0] | (e[1] << 16), e[2] | (e[3] << 16));
       }
     }
 #pragma unroll
-    for (int p = 0; p < kP; ++p) {
-      const int ox = g + p * NG;
-      if (ox < OW)
-        store16(out + (((long long)b * OH + oy) * OW + ox) * kCout
-                    + cg * kCPT, acc[p]);
+    for (int k = 0; k < kLoads; ++k) {
+      const int i = i0 + k * kThreads + tid;
+      if (i >= npix) continue;
+      if (CP == 4)
+        reinterpret_cast<uint2*>(xs)[i] = v[k];
+      else
+        reinterpret_cast<unsigned short*>(xs)[i] = (unsigned short)v[k].x;
+    }
+  }
+  __syncthreads();
+
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  // padded K terms: kw = 7 is the upper half of lane t = 3's pair (Cin 1)
+  // or lanes t >= 2's upper registers on odd k-steps (Cin 3, 4)
+  const uint32_t kw7_mask = CIN == 1 ? (t == 3 ? 0x0000ffffu : ~0u)
+                                     : (t >= 2 ? 0u : ~0u);
+  OutT* st = stage + warp * 16 * SS;
+  OutT* ob = out + (size_t)b * npx * kCout;
+
+  for (int round = 0; round < kRounds; ++round) {
+    const int q0 = p0 + (round * kWarps + warp) * kChunk;
+    if (q0 >= p1) break;
+    // word offsets of the pixels of rows g and g + 8 of each m-tile
+    int aoff[kMT][2];
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int q = min(q0 + 16 * mt + 8 * h + g, p1 - 1);
+        const int oy = q / OW, ox = q - oy * OW;
+        aoff[mt][h] = 2 * (oy - oy_first) * row_words
+                      + (CIN == 1 ? ox : 4 * ox) + t;
+      }
+    float acc[kMT][kNT][4];
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int j = 0; j < kNT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.f;
+
+#pragma unroll
+    for (int s = 0; s < L::KSTEPS; ++s) {
+      // the k-step's offset and that of its upper 8 k
+      const int koff = CIN == 1 ? 2 * s * row_words
+                                : (s >> 1) * row_words + 8 * (s & 1);
+      const int khi = CIN == 1 ? row_words : 4;
+      uint2 bf[kNT];
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) bf[j] = ws[(s * kNT + j) * 32 + lane];
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt) {
+        uint32_t a[4];
+        a[0] = xw[aoff[mt][0] + koff];
+        a[1] = xw[aoff[mt][1] + koff];
+        a[2] = xw[aoff[mt][0] + koff + khi];
+        a[3] = xw[aoff[mt][1] + koff + khi];
+        if (CIN == 1) {
+          a[0] &= kw7_mask;
+          a[1] &= kw7_mask;
+          if (s == L::KSTEPS - 1) {       // kh = 7
+            a[2] = 0u;
+            a[3] = 0u;
+          } else {
+            a[2] &= kw7_mask;
+            a[3] &= kw7_mask;
+          }
+        } else if (s & 1) {
+          a[2] &= kw7_mask;
+          a[3] &= kw7_mask;
+        }
+#pragma unroll
+        for (int j = 0; j < kNT; ++j) mma16816(acc[mt][j], a, bf[j]);
+      }
+    }
+
+    // out, bf16: each m-tile through the warp's padded tile, as 16-byte
+    // vectors (full 128-byte lines, one pixel each); f32: each lane's
+    // pairs straight from the fragments (4 lanes fill a 32-byte sector)
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt) {
+      const int qm = q0 + 16 * mt;
+      if (sizeof(OutT) == 4) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int q = qm + 8 * h + g;
+          if (q >= p1) continue;
+#pragma unroll
+          for (int j = 0; j < kNT; ++j)
+            put2(ob + (size_t)q * kCout + 8 * j + 2 * t,
+                 acc[mt][j][2 * h], acc[mt][j][2 * h + 1]);
+        }
+        continue;
+      }
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        put2(st + g * SS + 8 * j + 2 * t, acc[mt][j][0], acc[mt][j][1]);
+        put2(st + (g + 8) * SS + 8 * j + 2 * t, acc[mt][j][2],
+             acc[mt][j][3]);
+      }
+      __syncwarp();
+      const int nv = min(16, p1 - qm);
+      constexpr int kVecRow = kCout * (int)sizeof(OutT) / 16;
+      if (nv > 0) {
+        uint4* dst = reinterpret_cast<uint4*>(ob + (size_t)qm * kCout);
+        for (int v = lane; v < nv * kVecRow; v += 32) {
+          const int r = v / kVecRow, cv = v - r * kVecRow;
+          dst[v] = *reinterpret_cast<const uint4*>(
+              st + r * SS + cv * (16 / (int)sizeof(OutT)));
+        }
+      }
+      __syncwarp();
     }
   }
 }
 
-size_t smem_bytes(int cin, int ow) {
-  return sizeof(float) * ((size_t)49 * cin * kCout
-                          + (size_t)cin * kRin * 2 * half_width(ow));
+template <int CIN, typename OutT>
+size_t smem_bytes(int ow) {
+  using L = Layout<CIN>;
+  const size_t nrow = 2 * span_max(ow) + 8, ncol = 2 * ow + 6;
+  return (nrow * ncol * L::CP * 2 + 15) / 16 * 16
+         + (size_t)L::KSTEPS * kNT * 32 * sizeof(uint2)
+         + (sizeof(OutT) == 2 ? (size_t)kWarps * 16 * kStageStride * 2 : 0);
 }
 
 template <int CIN, typename OutT>
@@ -176,20 +319,19 @@ int launch(const void* x, long long sb, long long sc, long long sh,
            long long sw, const void* w, void* out, int B, int H, int W,
            cudaStream_t st) {
   const int OH = (H - 1) / 2 + 1, OW = (W - 1) / 2 + 1;
-  const size_t smem = smem_bytes(CIN, OW);
+  const size_t smem = smem_bytes<CIN, OutT>(OW);
   if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
   const cudaError_t attr = cudaFuncSetAttribute(
       stem_conv_kernel<CIN, OutT>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (attr != cudaSuccess) return (int)attr;
-  // the fewest rounds of kMaxThreads, then as few threads as cover them
-  const int items = kTR * kNCG * groups(OW);
-  const int rounds = (items + kMaxThreads - 1) / kMaxThreads;
-  int threads = (items + rounds - 1) / rounds;
-  threads = (threads + 31) / 32 * 32;
-  const dim3 grid((OH + kTR - 1) / kTR, B);
-  stem_conv_kernel<CIN, OutT><<<grid, threads, smem, st>>>(
-      static_cast<const __nv_bfloat16*>(x), sb, sc, sh, sw,
+  // channels_last Cin 4 with 8-byte aligned pixels: vector loads
+  const int vec8 = CIN == 4 && sc == 1 && sw == 4 && sh % 4 == 0
+                   && sb % 4 == 0
+                   && reinterpret_cast<uintptr_t>(x) % 8 == 0;
+  const dim3 grid((OH * OW + kBlockPx - 1) / kBlockPx, B);
+  stem_conv_kernel<CIN, OutT><<<grid, kThreads, smem, st>>>(
+      static_cast<const __nv_bfloat16*>(x), sb, sc, sh, sw, vec8,
       static_cast<const __nv_bfloat16*>(w), static_cast<OutT*>(out), H, W,
       OH, OW);
   return (int)cudaGetLastError();
@@ -212,8 +354,10 @@ int launch_cin(int cin, const void* x, long long sb, long long sc,
 extern "C" {
 
 // x: (B, cin, H, W) bf16 read through element strides (sb, sc, sh, sw);
-// w: (7, 7, cin, 64) bf16 contiguous; out: (B, OH, OW, 64) contiguous, f32
-// or (out_bf16 != 0) bf16, OH = (H - 1) / 2 + 1, OW = (W - 1) / 2 + 1.
+// w: the (K, 64) bf16 weight of ops/stem.pack_weight, contiguous and
+// 16-byte aligned (K = 224 for cin 3 and 4, 64 for cin 1); out: (B, OH,
+// OW, 64) contiguous, f32 or (out_bf16 != 0) bf16, OH = (H - 1) / 2 + 1,
+// OW = (W - 1) / 2 + 1.
 int stem_conv_launch(const void* x, long long sb, long long sc, long long sh,
                      long long sw, const void* w, void* out, int out_bf16,
                      int B, int cin, int H, int W, void* stream) {

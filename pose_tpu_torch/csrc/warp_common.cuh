@@ -94,41 +94,70 @@ __device__ __forceinline__ float col_map(const float* h, float uf,
 // over the source grid [0, n_y) x [0, n_x), with zero weight for a
 // non-finite Y or X (the -1e9 of the TPU kernels). Every hat row has two
 // nonzero taps, so each sum is a 2-tap interpolation: pass 2 needs two
-// pass-1 values, each of two source pixels. `src(sy, sx, val)` fills the C
-// values of the source pixel (sy, sx): a canvas read for the banded and
+// pass-1 values, each of two source pixels. `two_pass_taps` computes the
+// taps and weights (the maps' divisions), `two_pass_apply` the sums;
+// `two_pass` is the two in turn. `src(sy, sx, val)` fills the C values of
+// the source pixel (sy, sx): a canvas read for the banded and
 // full-scanline kernels, the stage-A resample for the split kernel.
-template <int C, typename Src>
-__device__ __forceinline__ void two_pass(const float* h, int n_y, int n_x,
-                                         float lim_y, float lim_x, int u,
-                                         int v, const Src& src,
-                                         float acc[C]) {
-  const float vf = (float)v;
+struct TwoPassTaps {
+  int sx0;           // pass 2's first tap; wx[k] the weight of sx0 + k
   float wx[2];
-  const int sx0 = hat_taps(col_map(h, (float)u, vf), n_x, lim_x, wx);
+  int sy0[2];        // pass 1's first tap at column sx0 + k
+  float wy[2][2];    // (zero where wx[k] is zero)
+};
+
+__device__ __forceinline__ void two_pass_taps(const float* h, int n_y,
+                                              int n_x, float lim_y,
+                                              float lim_x, int u, int v,
+                                              TwoPassTaps& tp) {
+  const float vf = (float)v;
+  tp.sx0 = hat_taps(col_map(h, (float)u, vf), n_x, lim_x, tp.wx);
+#pragma unroll
+  for (int kx = 0; kx < 2; ++kx) {
+    tp.sy0[kx] = 0;
+    tp.wy[kx][0] = 0.f;
+    tp.wy[kx][1] = 0.f;
+    if (tp.wx[kx] == 0.f) continue;
+    tp.sy0[kx] = hat_taps(row_map(h, vf, (float)(tp.sx0 + kx)), n_y, lim_y,
+                          tp.wy[kx]);
+  }
+}
+
+template <int C, typename Src>
+__device__ __forceinline__ void two_pass_apply(const TwoPassTaps& tp,
+                                               const Src& src, float acc[C]) {
 #pragma unroll
   for (int c = 0; c < C; ++c) acc[c] = 0.f;
 #pragma unroll
   for (int kx = 0; kx < 2; ++kx) {
-    if (wx[kx] == 0.f) continue;
-    const int xs = sx0 + kx;
-    float wy[2];
-    const int sy0 = hat_taps(row_map(h, vf, (float)xs), n_y, lim_y, wy);
+    if (tp.wx[kx] == 0.f) continue;
+    const int xs = tp.sx0 + kx;
     float inter[C];
 #pragma unroll
     for (int c = 0; c < C; ++c) inter[c] = 0.f;
 #pragma unroll
     for (int ky = 0; ky < 2; ++ky) {
-      if (wy[ky] == 0.f) continue;
+      if (tp.wy[kx][ky] == 0.f) continue;
       float a[C];
-      src(sy0 + ky, xs, a);
+      src(tp.sy0[kx] + ky, xs, a);
 #pragma unroll
       for (int c = 0; c < C; ++c)
-        inter[c] = __fadd_rn(inter[c], __fmul_rn(wy[ky], a[c]));
+        inter[c] = __fadd_rn(inter[c], __fmul_rn(tp.wy[kx][ky], a[c]));
     }
 #pragma unroll
     for (int c = 0; c < C; ++c)
-      acc[c] = __fadd_rn(acc[c], __fmul_rn(wx[kx], inter[c]));
+      acc[c] = __fadd_rn(acc[c], __fmul_rn(tp.wx[kx], inter[c]));
   }
+}
+
+template <int C, typename Src>
+__device__ __forceinline__ void two_pass(const float* h, int n_y, int n_x,
+                                         float lim_y, float lim_x, int u,
+                                         int v, const Src& src,
+                                         float acc[C]) {
+  TwoPassTaps tp;
+  two_pass_taps(h, n_y, n_x, lim_y, lim_x, u, v, tp);
+  two_pass_apply<C>(tp, src, acc);
 }
 
 }  // namespace warp_common

@@ -6,16 +6,23 @@
   and contract: x (B, Cin, Hp, Wp) bf16 as `pad_planar` makes it, w (7, 7,
   Cin, 64); returns (B, OH, OH, 64) f32 NHWC, each output the f32 sum of
   bf16 x bf16 products;
-- `stem_conv(x, w_hwio, out_dtype)` — the wrapper of the hand-written
-  kernel (`csrc/stem_conv.cu`, the port of `_stem_kernel` :63): x (B, Cin,
-  H, W) bf16 in any strides (the kernel reads through them, with the
-  3-pixel zero border in its index math, so neither a padded copy nor a
-  layout change is made), out (B, OH, OW, 64) f32 or bf16 (the f32 sum
-  rounded once). On the card it launches the kernel (and counts it in
-  `.launches`) or raises; on the CPU it runs `stem_conv_plain`;
+- `pack_weight(w_hwio)` — the (K, 64) bf16 weight of the kernel's
+  implicit GEMM: K in the order (kh, kw, ci) with kw padded to 8 and ci to
+  4 (K = 224 for Cin 3 and 4), or (kh, kw) padded to 8 x 8 for Cin 1 (K =
+  64); every padded row zero (`K_LAYOUT`);
+- `stem_conv(x, w_hwio, out_dtype, w_packed=None)` — the wrapper of the
+  hand-written kernel (`csrc/stem_conv.cu`, the port of `_stem_kernel`
+  :63, a tensor-core implicit GEMM): x (B, Cin, H, W) bf16 in any strides
+  (the kernel reads through them, with the 3-pixel zero border in its
+  index math, so neither a padded copy nor a layout change is made), out
+  (B, OH, OW, 64) f32 or bf16 (the f32 sum rounded once). On the card it
+  launches the kernel (and counts it in `.launches`) or raises; on the CPU
+  it runs `stem_conv_plain`. `w_packed` is `pack_weight(w_hwio)` where
+  the caller keeps it;
 - `stem_conv_plain(x, w)` — the plain version, F.conv2d on the f32 values
   of the bf16 operands: their products are exact in f32, so it is the same
-  f32 sum in another order (TF32 stays off, runtime.no_tf32);
+  f32 sum in another order (TF32 stays off, runtime.no_tf32); the
+  kernel's tensor-core sums are within K * 2^-23 of its sum of |terms|;
 - `StemConv` — the model's non-partial stem (`conv1`, the fusion net's
   `conv2`): an nn.Conv2d whose forward takes the kernel route when the
   input and weight are bf16, autograd records nothing and Cin is 1, 3 or 4
@@ -26,6 +33,7 @@ Importing this module compiles nothing and needs no GPU.
 
 import ctypes
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -37,6 +45,8 @@ _lib = None
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 CIN = (1, 3, 4)
 COUT = 64
+# the kernel's K order per Cin: (kh, kw, ci) padded to these sizes
+K_LAYOUT = {1: (8, 8, 1), 3: (7, 8, 4), 4: (7, 8, 4)}
 
 
 def plan(side_in):
@@ -63,6 +73,17 @@ def stem_conv_plain(x, w):
     return F.conv2d(x.float(), w.float(), stride=2, padding=3)
 
 
+def pack_weight(w_hwio):
+    """(7, 7, Cin, 64) -> the kernel's (K, 64) bf16 weight: rows in the
+    order (kh, kw, ci) of `K_LAYOUT[Cin]`, the padded ones zero."""
+    cin = w_hwio.shape[2]
+    kh, kw, cp = K_LAYOUT[cin]
+    packed = torch.zeros((kh, kw, cp, COUT), dtype=torch.bfloat16,
+                         device=w_hwio.device)
+    packed[:7, :7, :cin] = w_hwio
+    return packed.reshape(kh * kw * cp, COUT)
+
+
 # ------------------------------------------------------------- the kernel
 
 
@@ -85,7 +106,7 @@ def out_shape(x):
     return b, (h - 1) // 2 + 1, (w - 1) // 2 + 1, COUT
 
 
-def _check(x, w_hwio, out_dtype):
+def _check(x, w_hwio, out_dtype, w_packed):
     if x.device.type != 'cuda':
         raise ValueError(f'stem_conv: unsupported device {x.device}')
     if x.dim() != 4 or x.dtype != torch.bfloat16 or x.shape[1] not in CIN:
@@ -98,30 +119,43 @@ def _check(x, w_hwio, out_dtype):
         raise ValueError(f'stem_conv: w must be contiguous (7, 7, {cin}, '
                          f'{COUT}) bf16 on {x.device}, got '
                          f'{tuple(w_hwio.shape)} {w_hwio.dtype}')
+    k = int(np.prod(K_LAYOUT[cin]))
+    if w_packed is not None and (
+            tuple(w_packed.shape) != (k, COUT)
+            or w_packed.dtype != torch.bfloat16
+            or w_packed.device != x.device or not w_packed.is_contiguous()
+            or w_packed.data_ptr() % 16):
+        raise ValueError(f'stem_conv: w_packed must be pack_weight(w), '
+                         f'contiguous and 16-byte aligned ({k}, {COUT}) bf16 '
+                         f'on {x.device}, got {tuple(w_packed.shape)} '
+                         f'{w_packed.dtype}')
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f'stem_conv: out_dtype f32 or bf16, not {out_dtype}')
 
 
-def launch(x, w_hwio, out):
-    """One bare launch into `out` (B, OH, OW, 64), no checks and no count."""
+def launch(x, w_packed, out):
+    """One bare launch into `out` (B, OH, OW, 64) with the packed weight,
+    no checks and no count."""
     b, cin, h, w = x.shape
     err = build().stem_conv_launch(
-        x.data_ptr(), *x.stride(), w_hwio.data_ptr(), out.data_ptr(),
+        x.data_ptr(), *x.stride(), w_packed.data_ptr(), out.data_ptr(),
         int(out.dtype == torch.bfloat16), b, cin, h, w, cuda_stream(x))
     check_launch(_lib, err, 'stem_conv')
 
 
-def stem_conv(x, w_hwio, out_dtype=torch.float32):
+def stem_conv(x, w_hwio, out_dtype=torch.float32, w_packed=None):
     """x (B, Cin, H, W) bf16, w_hwio (7, 7, Cin, 64) bf16 -> (B, OH, OW, 64)
-    NHWC in out_dtype: the kernel on the card, the plain version on the
-    CPU."""
+    NHWC in out_dtype: the kernel on the card (with `w_packed`, or
+    pack_weight(w_hwio) made here), the plain version on the CPU."""
     if x.device.type == 'cpu':
         out = stem_conv_plain(x, w_hwio.permute(3, 2, 0, 1))
         return out.permute(0, 2, 3, 1).contiguous().to(out_dtype)
-    _check(x, w_hwio, out_dtype)
+    _check(x, w_hwio, out_dtype, w_packed)
+    if w_packed is None:
+        w_packed = pack_weight(w_hwio)
     out = torch.empty(out_shape(x), dtype=out_dtype, device=x.device)
     with torch.cuda.device(x.device):
-        launch(x, w_hwio, out)
+        launch(x, w_packed, out)
     stem_conv.launches += 1
     return out
 
@@ -151,6 +185,7 @@ class StemConv(nn.Conv2d):
 
     def __init__(self, cin):
         super().__init__(cin, COUT, 7, stride=2, padding=3, bias=False)
+        self._pack = None
 
     def forward(self, x):
         w = self.weight
@@ -158,6 +193,17 @@ class StemConv(nn.Conv2d):
                                                 or w.requires_grad)
         if (x.dtype == torch.bfloat16 and w.dtype == torch.bfloat16
                 and not recorded and x.shape[1] in CIN):
-            w_hwio = w.permute(2, 3, 1, 0).contiguous()
-            return stem_conv(x, w_hwio, torch.bfloat16).permute(0, 3, 1, 2)
+            w_hwio, w_packed = self._packed()
+            return stem_conv(x, w_hwio, torch.bfloat16,
+                             w_packed).permute(0, 3, 1, 2)
         return F.conv2d(x, w, stride=2, padding=3)
+
+    def _packed(self):
+        """(HWIO weight, pack_weight of it), made again only when the weight
+        changes (its storage, version, dtype or device)."""
+        w = self.weight
+        key = (w.data_ptr(), w._version, w.dtype, w.device)
+        if self._pack is None or self._pack[0] != key:
+            w_hwio = w.detach().permute(2, 3, 1, 0).contiguous()
+            self._pack = (key, w_hwio, pack_weight(w_hwio))
+        return self._pack[1:]

@@ -13,6 +13,11 @@ pose_tpu/ops/warp_pallas.py::_split_kernel via `warp_batch_split_pallas`).
   dense stage-A dots and the two-pass matmul stage B in f32 (JAX
   `warp_batch_split(..., stage_b='mxu')`). The CPU and the tests use it;
   nothing on the CUDA path calls it.
+- `tile_footprints`, `staged_bytes`, `over_budget_count` — the kernel's
+  tiling on the host: each output tile's footprint in the intermediate,
+  the shared memory its staged path needs, and how many tiles of a batch
+  exceed `SMEM_BUDGET` (the kernel computes those from the canvas directly
+  and counts them in a device counter, `over_budget_tiles`).
 - `band_ok_v2` — the host gate of the banded TPU kernel (warp_pallas.py:288,
   numpy). The CUDA kernel computes the unbanded warp, which equals the TPU
   kernel's result exactly where this gate admits the batch.
@@ -30,6 +35,13 @@ from ..cuda_build import check_launch, cuda_stream
 from . import warp
 
 _lib = None
+# an output tile of the kernel (rows, columns) and the shared memory a tile
+# may stage (bytes), allocated to every block: the loader's crops need up
+# to 26 KB from uint8 RGB canvases and 15 KB from f32 depth ones, 42 KB from
+# f32 RGB ones (tile_footprints); 40 KB keeps 4 blocks on an H100 SM
+TILE = (16, 32)
+SMEM_BUDGET = 40 * 1024
+_over = {}                  # device -> the kernel's over-budget counter
 
 
 def band_ok_v2(homographies, src_hw, out_hw, band=32):
@@ -109,7 +121,7 @@ def build():
         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-        ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
     lib.split_warp_launch.restype = ctypes.c_int
     _lib = lib
     return lib
@@ -199,11 +211,35 @@ split_warp.launches = 0
 split_warp.launches_by_channels = {3: 0, 1: 0}
 
 
-def launch(canvases, scal, out, m, post_scale, wdtype):
+def over_counter(device):
+    """The kernel's device counter of over-budget tiles on `device` (int32,
+    made at first use)."""
+    device = torch.device(device)
+    if device.index is None:
+        device = torch.device(device.type, torch.cuda.current_device())
+    if device not in _over:
+        _over[device] = torch.zeros(1, dtype=torch.int32, device=device)
+    return _over[device]
+
+
+def over_budget_tiles(device, reset=False):
+    """The tiles the kernel has computed from the canvas directly (over its
+    budget) on `device` since the last reset; reads the device, so only
+    checks call it."""
+    counter = over_counter(device)
+    n = int(counter.item())
+    if reset:
+        counter.zero_()
+    return n
+
+
+def launch(canvases, scal, out, m, post_scale, wdtype, budget=SMEM_BUDGET):
     """One launch of the kernel on the current stream, with no checks and
     no count: checked (B, H, W, C) canvases, (B, 15) scalars from
     `pack_scalars`, and an allocated (B, C, out_h, out_w) f32 `out`.
-    `split_warp` calls it; a benchmark can time the kernel alone with it."""
+    `split_warp` calls it; a benchmark can time the kernel alone with it.
+    `budget` is the shared memory a tile may stage; 0 computes every tile
+    from the canvas directly (the same result, bit for bit)."""
     lib = build()
     b, src_h, src_w, n_ch = canvases.shape
     with torch.cuda.device(canvases.device):
@@ -211,5 +247,120 @@ def launch(canvases, scal, out, m, post_scale, wdtype):
             canvases.data_ptr(), int(canvases.dtype == torch.uint8),
             scal.data_ptr(), out.data_ptr(), b, src_h, src_w, n_ch, m,
             out.shape[2], out.shape[3], float(post_scale),
-            int(wdtype == torch.bfloat16), cuda_stream(canvases))
+            int(wdtype == torch.bfloat16), int(budget),
+            over_counter(canvases.device).data_ptr(), cuda_stream(canvases))
     check_launch(lib, err, 'split_warp')
+
+
+# ------------------------------------------------------- tiles on the host
+
+
+def _hat_taps(t, n, lim):
+    """The kernel's hat_taps on f32 tensors: (first index, weights (..., 2)),
+    weights zero for taps out of [0, n) or beyond lim, or t non-finite."""
+    ok = (t > -1.0) & (t < n)
+    f0 = torch.floor(torch.where(ok, t, torch.zeros_like(t)))
+    f1 = f0 + 1.0
+    tri = lambda d: torch.clamp(1.0 - torch.abs(d), min=0.0)  # noqa: E731
+    zero = torch.zeros_like(t)
+    w0 = torch.where(ok & (f0 >= 0) & (f0 <= lim), tri(t - f0), zero)
+    w1 = torch.where(ok & (f1 < n) & (f1 <= lim), tri(t - f1), zero)
+    return f0.long(), torch.stack([w0, w1], -1)
+
+
+def tile_footprints(residual, scale, extents, out_hw, m, tile=TILE):
+    """Phase 1 of the kernel on the host: for each (rows x cols) output
+    tile, the range of intermediate rows p and columns q that its stage-B
+    taps read with nonzero weight, from the kernel's f32 expressions
+    (warp.col_map and the row map at each tap column). (B, 3, 3) residual,
+    (B, 2, 2) scale, (B, 2) extents -> (B, tiles_y, tiles_x, 4) int64
+    [pmin, pmax, qmin, qmax]; an empty footprint has pmin > pmax."""
+    from . import warp
+
+    h = residual.detach().to('cpu', torch.float32).reshape(-1, 9)
+    b = h.shape[0]
+    out_h, out_w = out_hw
+    lim = float(m - 1)
+    x_map = warp.col_map(h.reshape(b, 3, 3), out_hw)
+    x_map = torch.where(x_map == -1e9, torch.full_like(x_map, float('nan')),
+                        x_map)
+    sx0, wx = _hat_taps(x_map, m, lim)                    # (b, oh, ow)
+    hk = [h[:, k, None, None] for k in range(9)]
+    vf = torch.arange(out_h, dtype=torch.float32)[None, :, None]
+    big = 1 << 40           # above any index; exact through F.pad's float
+    p_lo = torch.full((b, out_h, out_w), big, dtype=torch.int64)
+    p_hi = torch.full((b, out_h, out_w), -1, dtype=torch.int64)
+    q_lo, q_hi = p_lo.clone(), p_hi.clone()
+    for kx in range(2):
+        on = wx[..., kx] > 0
+        xs = sx0 + kx
+        xf = xs.to(torch.float32)
+        # the kernel's row_map at (v, xs), in its operation order
+        denom_u = hk[0] - hk[6] * xf
+        u_of = (xf * (hk[7] * vf + hk[8]) - hk[1] * vf - hk[2]) / denom_u
+        w_h = hk[6] * u_of + hk[7] * vf + hk[8]
+        y = (hk[3] * u_of + hk[4] * vf + hk[5]) / w_h
+        sy0, wy = _hat_taps(y, m, lim)
+        q_lo = torch.where(on, torch.minimum(q_lo, xs), q_lo)
+        q_hi = torch.where(on, torch.maximum(q_hi, xs), q_hi)
+        for ky in range(2):
+            hit = on & (wy[..., ky] > 0)
+            p_lo = torch.where(hit, torch.minimum(p_lo, sy0 + ky), p_lo)
+            p_hi = torch.where(hit, torch.maximum(p_hi, sy0 + ky), p_hi)
+    th, tw = tile
+    ty, tx = -(-out_h // th), -(-out_w // tw)
+    pad = (0, tx * tw - out_w, 0, ty * th - out_h)
+    out = []
+    for t, fill, red in ((p_lo, big, torch.amin), (p_hi, -1, torch.amax),
+                         (q_lo, big, torch.amin), (q_hi, -1, torch.amax)):
+        t = torch.nn.functional.pad(t, pad, value=fill)
+        out.append(red(t.reshape(b, ty, th, tx, tw), dim=(2, 4)))
+    return torch.stack(out, -1)
+
+
+def staged_bytes(footprints, scale, extents, n_ch, elem):
+    """The shared memory (bytes) each tile's staged path needs, as the
+    kernel computes it (split_warp.cu: staged_bytes): the canvas rectangle
+    under the footprint's stage-A taps, clipped to the extent, in rows of
+    (nx * C * elem + 6) // 4 words and a byte shift each; the row and
+    column tap tables; the (C, np, nq) f32 stage-A values. (B, ty, tx)
+    int64; 0 for an empty footprint, 2^62 where the scalars are not
+    finite."""
+    def al16(n):
+        return (n + 15) // 16 * 16
+
+    fp = footprints
+    b = fp.shape[0]
+    sc = scale.detach().to('cpu', torch.float32).reshape(b, 1, 1, 2, 2)
+    ext = extents.detach().to('cpu', torch.float32).reshape(b, 1, 1, 2)
+    n_p = (fp[..., 1] - fp[..., 0] + 1).clamp(min=0)
+    n_q = (fp[..., 3] - fp[..., 2] + 1).clamp(min=0)
+    empty = n_p == 0
+    pq = torch.where(empty[..., None], torch.zeros_like(fp), fp).float()
+    # ya and xa at the footprint's ends (start + p * step, in f32)
+    ya = sc[..., 0, 1, None] + pq[..., 0:2] * sc[..., 0, 0, None]
+    xa = sc[..., 1, 1, None] + pq[..., 2:4] * sc[..., 1, 0, None]
+    finite = torch.isfinite(ya).all(-1) & torch.isfinite(xa).all(-1)
+
+    def span(a, lim):
+        lo = torch.clamp(torch.floor(a.amin(-1)), min=0.0)
+        hi = torch.minimum(torch.floor(a.amax(-1)) + 1.0, lim)
+        n = torch.where(hi >= lo, hi - lo + 1.0, torch.zeros_like(hi))
+        return torch.nan_to_num(n).long()
+
+    ny = span(ya, torch.floor(ext[..., 0] - 1.0))
+    nx = span(xa, torch.floor(ext[..., 1] - 1.0))
+    none = (ny == 0) | (nx == 0)
+    ny, nx = ny.masked_fill(none, 0), nx.masked_fill(none, 0)
+    need = (al16(ny * ((nx * n_ch * elem + 6) // 4) * 4) + al16(4 * ny)
+            + al16(12 * (n_p + n_q)) + al16(4 * n_ch * n_p * n_q))
+    need = torch.where(empty, torch.zeros_like(need), need)
+    return torch.where(empty | finite, need, torch.full_like(need, 1 << 62))
+
+
+def over_budget_count(residual, scale, extents, out_hw, m, n_ch, elem,
+                      budget=SMEM_BUDGET):
+    """How many output tiles of this batch the kernel computes from the
+    canvas directly, its staged path needing more than `budget` bytes."""
+    fp = tile_footprints(residual, scale, extents, out_hw, m)
+    return int((staged_bytes(fp, scale, extents, n_ch, elem) > budget).sum())

@@ -87,6 +87,75 @@ def test_kernel_matches_plain(dev, wdtype, small_extents, u8):
     assert float((out - ref).abs().max()) <= TOL
 
 
+def split_args(kind, small_extents, seed):
+    """Split-warp arguments on the card: RGB uint8 canvases with bf16
+    weights, RGB f32 with f32 weights, or raw depth (f32, C = 1)."""
+    if kind == 'depth':
+        imgs, homs, ext = depth_frames(seed)
+        if not small_extents:
+            ext = np.tile(np.array(imgs.shape[1:3], np.int32), (3, 1))
+    else:
+        imgs, homs, ext = frames(seed, kind == 'u8', small_extents)
+    canv, homs, ext = (torch.as_tensor(a).cuda() for a in (imgs, homs, ext))
+    m = warp.split_defaults((OUT, OUT))[0]
+    residual, scale = warp.decompose_homography(homs, (OUT, OUT), m)
+    post = 1 / 255 if kind == 'u8' else 1.0
+    wdtype = torch.bfloat16 if kind == 'u8' else torch.float32
+    return (canv, residual, scale, ext, (OUT, OUT), m, post, wdtype)
+
+
+@pytest.mark.parametrize('small_extents', [False, True],
+                         ids=['full', 'extents'])
+@pytest.mark.parametrize('kind', ['u8', 'f32', 'depth'])
+def test_staged_tiles_equal_direct_tiles(dev, kind, small_extents):
+    """The kernel with its tiles' stage A staged in shared memory (the
+    wrapper's budget) and with budget 0 (every tile from the canvas
+    directly, as the first version computed it): the same expressions in the
+    same order, so the same bits. The over-budget counter equals
+    tile_footprints' prediction for both budgets (0 for the staged run)."""
+    args = split_args(kind, small_extents, 75 + small_extents)
+    canv, residual, scale, ext, out_hw, m, post, wdtype = args
+    n_ch, elem = canv.shape[3], canv.element_size()
+    warp_cuda.over_budget_tiles(dev, reset=True)
+    staged = warp_cuda.split_warp(*args)
+    over = warp_cuda.over_budget_tiles(dev, reset=True)
+    direct = torch.empty_like(staged)
+    warp_cuda.launch(canv, warp_cuda.pack_scalars(residual, scale, ext),
+                     direct, m, post, wdtype, budget=0)
+    over0 = warp_cuda.over_budget_tiles(dev, reset=True)
+    assert torch.equal(staged, direct)
+    assert over == warp_cuda.over_budget_count(
+        residual, scale, ext, out_hw, m, n_ch, elem) == 0
+    tiles = -(-OUT // warp_cuda.TILE[0]) * -(-OUT // warp_cuda.TILE[1]) * 3
+    assert over0 == warp_cuda.over_budget_count(
+        residual, scale, ext, out_hw, m, n_ch, elem, budget=0) == tiles
+
+
+def test_over_budget_tiles_match_plain(dev):
+    """Whole 512^2 canvases squeezed into 65^2 crops: each tile's canvas
+    rectangle is far over the budget, so the kernel computes those tiles
+    from the canvas directly (counted, as predicted), within TOL of the
+    plain version."""
+    rng = np.random.RandomState(77)
+    imgs = torch.as_tensor(rng.randint(0, 256, (2, 512, 512, 3),
+                                       dtype=np.uint8)).cuda()
+    sc = 511.0 / (OUT - 1)
+    homs = torch.tensor([[[sc, 0, 0], [0, sc, 0], [0, 0, 1]]] * 2,
+                        dtype=torch.float32).cuda()
+    ext = torch.tensor([[512, 512], [500, 480]], dtype=torch.int32).cuda()
+    m = warp.split_defaults((OUT, OUT))[0]
+    residual, scale = warp.decompose_homography(homs, (OUT, OUT), m)
+    args = (imgs, residual, scale, ext, (OUT, OUT), m, 1 / 255,
+            torch.bfloat16)
+    want = warp_cuda.over_budget_count(residual, scale, ext, (OUT, OUT), m,
+                                       3, 1)
+    warp_cuda.over_budget_tiles(dev, reset=True)
+    out = warp_cuda.split_warp(*args)
+    assert warp_cuda.over_budget_tiles(dev, reset=True) == want > 0
+    ref = warp_cuda.split_warp_plain(*args)
+    assert float((out - ref).abs().max()) <= TOL
+
+
 def test_wrapper_rejects_what_the_kernel_does_not_take(dev):
     imgs, homs, ext = frames(80)
     canv, homs, ext = (torch.as_tensor(a).to(dev) for a in (imgs, homs, ext))
@@ -706,6 +775,7 @@ def stem_dev():
 
 
 def stem_operands(seed, b, cin, side, dev):
+    """bf16 x (B, Cin, S, S) and HWIO w on `dev`."""
     g = torch.Generator().manual_seed(seed)
     x = torch.randn(b, cin, side, side, generator=g).to(torch.bfloat16)
     w = (torch.randn(7, 7, cin, 64, generator=g) * 0.05).to(torch.bfloat16)
@@ -718,8 +788,10 @@ def test_stem_kernel_matches_plain(stem_dev, cin, side):
     """stem_conv_fwd on the padded planar input and stem_conv on the
     channels_last input (the model's layout) against the plain version (f32
     cuDNN, TF32 off) on the same bf16 operands: the same exact products
-    summed in another order, within 1e-6 of each output's sum of |terms|;
-    the bf16 output is the f32 output rounded, bit for bit."""
+    summed on the tensor cores in another order (each k-group aligned to
+    its largest exponent), within K 2^-23 of each output's sum of |terms|
+    for K = 49 Cin terms; the bf16 output is the f32 output rounded, bit
+    for bit."""
     x, w = stem_operands(cin * 1000 + side, 2, cin, side, stem_dev)
     before = stem.stem_conv.launches
     out = stem.stem_conv_fwd(stem.pad_planar(x, side), w, side)
@@ -731,7 +803,8 @@ def test_stem_kernel_matches_plain(stem_dev, cin, side):
     torch.cuda.synchronize()
     oh = (side - 1) // 2 + 1
     assert out.shape == (2, oh, oh, 64) and out.dtype == torch.float32
-    assert bool(((out - ref).abs() <= 1e-6 * mag + 1e-30).all())
+    tol = 49 * cin * 2.0 ** -23
+    assert bool(((out - ref).abs() <= tol * mag + 1e-30).all())
     assert torch.equal(out_bf, out.to(torch.bfloat16))
     assert stem.stem_conv.launches == before + 2
 
@@ -768,6 +841,10 @@ def test_stem_wrapper_refuses_what_the_kernel_does_not_take(stem_dev):
                 (x, w.permute(1, 0, 2, 3))):
         with pytest.raises(ValueError):
             stem.stem_conv(*bad)
+    packed = stem.pack_weight(w)
+    for bad in (packed[:64], packed.float(), packed.t().contiguous().t()):
+        with pytest.raises(ValueError):
+            stem.stem_conv(x, w, torch.bfloat16, bad)
     with pytest.raises(ValueError):
         stem.stem_conv(x, w, torch.float16)
     assert stem.stem_conv.launches == before

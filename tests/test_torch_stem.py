@@ -89,6 +89,56 @@ def test_stem_conv_fwd_matches_the_pallas_kernel_interpreted():
     assert np.all(np.abs(got.numpy() - ref) <= 1e-6 * magnitude(x, w))
 
 
+def im2col(x, cin):
+    """(B, Cin, S, S) -> (B, OH, OW, K) patches in the kernel's K order
+    (stem.K_LAYOUT: kh, kw, ci, each padded), the padded taps zero."""
+    kh, kw, cp = stem.K_LAYOUT[cin]
+    b, _, side, _ = x.shape
+    oh = (side - 1) // 2 + 1
+    cols = F.unfold(x, 7, padding=3, stride=2)            # (B, Cin 49, L)
+    cols = cols.reshape(b, cin, 7, 7, oh, oh).permute(0, 4, 5, 2, 3, 1)
+    patches = torch.zeros((b, oh, oh, kh, kw, cp), dtype=x.dtype)
+    patches[..., :7, :7, :cin] = cols
+    return patches.reshape(b, oh, oh, kh * kw * cp)
+
+
+def test_pack_weight_pins_the_kernel_layout():
+    """K is (kh, kw, ci) padded to 7 x 8 x 4 = 224 (Cin 3 and 4) or 8 x 8 =
+    64 (Cin 1), a multiple of the MMA's k-step of 16, and every padded row
+    of the packed weight is zero."""
+    for cin, k in ((1, 64), (3, 224), (4, 224)):
+        _, w = operands(cin, 1, cin, 9)
+        packed = stem.pack_weight(w)
+        assert packed.shape == (k, 64) and packed.dtype == torch.bfloat16
+        assert k % 16 == 0
+        grid = packed.reshape(*stem.K_LAYOUT[cin], 64)
+        assert torch.equal(grid[:7, :7, :cin], w)
+        pad = torch.ones_like(grid, dtype=torch.bool)
+        pad[:7, :7, :cin] = False
+        assert not bool(grid[pad].any())
+
+
+@pytest.mark.parametrize('side', [33, 65])
+@pytest.mark.parametrize('cin', [1, 3, 4])
+def test_implicit_gemm_layout_matches_plain_and_the_pallas_kernel(cin, side):
+    """The kernel's formulation, im2col in its padded K order times the
+    packed (K, 64) weight, at f64 (every product and sum exact enough)
+    against the plain version and JAX's stem_conv_fwd in interpret mode:
+    both f32 sums of the same exact products, within 49 Cin 2^-24 of each
+    output's sum of |terms| (f32 rounding of a 49 Cin-term sum)."""
+    x, w = operands(cin * 10 + side, 2, cin, side)
+    gemm = (im2col(x.double(), cin) @ stem.pack_weight(w).double()).numpy()
+    tol = 49 * cin * 2.0 ** -24 * magnitude(x, w)
+    plain = stem.stem_conv_plain(x, w.permute(3, 2, 0, 1)).permute(0, 2, 3, 1)
+    assert np.all(np.abs(plain.numpy() - gemm) <= tol)
+    xp = stem.pad_planar(x, side)
+    ref = np.asarray(jstem.stem_conv_fwd(
+        jnp.asarray(xp.float().numpy()).astype(jnp.bfloat16),
+        jnp.asarray(w.float().numpy()), side, interpret=True))
+    assert ref.shape == gemm.shape
+    assert np.all(np.abs(ref - gemm) <= tol)
+
+
 def test_stem_conv_on_the_cpu_is_the_plain_version():
     """The wrapper on a CPU tensor: the plain version, NHWC, f32 or its
     bf16 rounding; nothing counted as a launch. The padded input of the
@@ -150,9 +200,9 @@ def counted(monkeypatch):
     calls = []
     wrapped = stem.stem_conv
 
-    def counting(x, w_hwio, out_dtype=torch.float32):
+    def counting(x, w_hwio, out_dtype=torch.float32, w_packed=None):
         calls.append((x.dtype, tuple(x.shape), out_dtype))
-        return wrapped(x, w_hwio, out_dtype)
+        return wrapped(x, w_hwio, out_dtype, w_packed)
     monkeypatch.setattr(stem, 'stem_conv', counting)
     return calls
 
@@ -238,4 +288,20 @@ def test_stem_kernel_on_the_card_matches_plain():
     out = stem.stem_conv(x, w, torch.float32)
     ref = stem.stem_conv_plain(x, w.permute(3, 2, 0, 1)).permute(0, 2, 3, 1)
     mag = torch.as_tensor(magnitude(x.cpu(), w.cpu())).cuda()
-    assert bool(((out - ref).abs() <= 1e-6 * mag).all())
+    # tensor-core sums of the 196 exact products: within K 2^-23 of sum|terms|
+    assert bool(((out - ref).abs() <= 196 * 2.0 ** -23 * mag).all())
+
+
+def test_stem_packs_its_weight_once_per_version():
+    """StemConv keeps pack_weight of its weight and makes it again only
+    when the weight changes (an in-place update, a new dtype)."""
+    conv = stem.StemConv(4).to(torch.bfloat16)
+    w_hwio, packed = conv._packed()
+    assert conv._packed()[1] is packed
+    assert torch.equal(packed, stem.pack_weight(w_hwio))
+    with torch.no_grad():
+        conv.weight.add_(1.0)
+    w_new, repacked = conv._packed()
+    assert repacked is not packed
+    assert torch.equal(w_new, conv.weight.detach().permute(2, 3, 1, 0))
+    assert torch.equal(repacked, stem.pack_weight(w_new))

@@ -266,3 +266,72 @@ def test_bound_counts_exactly_the_pixels_the_warp_reads(small_extents,
         one[b, y, x] = 255 - one[b, y, x]
         changed += not torch.equal(crops(one), ref)
     assert changed >= 18
+
+
+def test_tile_footprints_hold_every_tap_of_their_tile():
+    """warp_cuda.tile_footprints, the kernel's phase 1 on the host: stage B
+    of each 16 x 32 output tile over the intermediate zeroed outside the
+    tile's footprint gives that tile's crops bit for bit (every tap with
+    nonzero weight lies inside: the zeroed terms had zero weight)."""
+    imgs, homs, ext = batch(65, small_extents=True)
+    residual, scale = warp.decompose_homography(torch.as_tensor(homs),
+                                                (OUT, OUT), M)
+    inter = warp.scale_resample_planar(torch.as_tensor(imgs), scale,
+                                       torch.as_tensor(ext), M,
+                                       torch.float32, 1 / 255)
+    fp = warp_cuda.tile_footprints(residual, scale, torch.as_tensor(ext),
+                                   (OUT, OUT), M)
+    th, tw = warp_cuda.TILE
+    assert fp.shape == (2, -(-OUT // th), -(-OUT // tw), 4)
+
+    def stage_b(planar):
+        return warp.warp_batch_mxu(planar.permute(0, 2, 3, 1), residual,
+                                   (OUT, OUT), wdtype=torch.float32)
+
+    ref = stage_b(inter)
+    for b, ty, tx in np.ndindex(*fp.shape[:3]):
+        p0, p1, q0, q1 = fp[b, ty, tx].tolist()
+        assert 0 <= p0 <= p1 < M and 0 <= q0 <= q1 < M
+        masked = torch.zeros_like(inter)
+        masked[b, :, p0:p1 + 1, q0:q1 + 1] = inter[b, :, p0:p1 + 1,
+                                                   q0:q1 + 1]
+        got = stage_b(masked)
+        rows, cols = slice(ty * th, (ty + 1) * th), slice(tx * tw,
+                                                          (tx + 1) * tw)
+        assert torch.equal(got[b, rows, cols], ref[b, rows, cols])
+
+
+@pytest.mark.parametrize('stream', ['rgb', 'depth'])
+def test_realistic_tiles_fit_the_kernel_budget(stream):
+    """Every output tile of 32 seeded batches of 8 crops drawn like the
+    loader's (chip_smoke.realistic_homs; each batch admitted by the split
+    gate) stages within warp_cuda.SMEM_BUDGET: the RGB stream's 512^2
+    uint8 canvases and the depth stream's 424 x 512 f32 ones, 257^2 crops.
+    So the kernel's over-budget counter stays 0 on the main paths. A whole
+    512^2 canvas squeezed into a 65^2 crop is over the budget."""
+    import chip_smoke
+    rng = np.random.RandomState(66 + (stream == 'depth'))
+    side = 257
+    m = warp.split_defaults((side, side))[0]
+    hw, n_ch, elem = (((512, 512), 3, 1) if stream == 'rgb'
+                      else ((424, 512), 1, 4))
+    worst = 0
+    for _ in range(32):
+        homs = chip_smoke.realistic_homs(rng, 8, hw[0], side)
+        assert warp.split_band_ok(homs, (side, side))
+        ext = torch.tensor([hw] * 8, dtype=torch.int32)
+        residual, scale = warp.decompose_homography(torch.as_tensor(homs),
+                                                    (side, side), m)
+        fp = warp_cuda.tile_footprints(residual, scale, ext, (side, side), m)
+        need = warp_cuda.staged_bytes(fp, scale, ext, n_ch, elem)
+        worst = max(worst, int(need.max()))
+        assert warp_cuda.over_budget_count(residual, scale, ext,
+                                           (side, side), m, n_ch, elem) == 0
+    assert 0 < worst <= warp_cuda.SMEM_BUDGET
+    whole = np.array([[[512 / OUT, 0, 0], [0, 512 / OUT, 0], [0, 0, 1]]],
+                     np.float32)
+    residual, scale = warp.decompose_homography(torch.as_tensor(whole),
+                                                (OUT, OUT), M)
+    ext = torch.tensor([[512, 512]], dtype=torch.int32)
+    assert warp_cuda.over_budget_count(residual, scale, ext, (OUT, OUT), M,
+                                       3, 1) > 0
