@@ -66,7 +66,7 @@
 // a tile needs up to 14 KB of uint8 RGB or f32 depth canvas (30 KB of f32
 // RGB), inside the wrapper's 40 KB.
 //
-// What bounds it now is instruction issue, not bytes (split_warp_ablation.py
+// What bounds it now is instruction issue, not bytes (tools/kernel_ablation.py
 // takes its parts out one by one, PERF.md has the numbers): the output
 // writes with each block's setup come to about 1.3x the byte bound, phase
 // 1's maps (five IEEE divisions a pixel) add about as much again, and
@@ -95,6 +95,9 @@ constexpr int kTW = 32, kTH = 16;            // output tile
 constexpr int kBX = 32, kBY = 8;             // threads; kTH / kBY pixels each
 constexpr int kPix = kTH / kBY;
 constexpr int kLoads = 4;                    // canvas words in flight
+// dynamic shared memory: with the static scalars and footprint, under the
+// 48 KB a block takes without a function attribute
+constexpr int kMaxBudget = 47 * 1024;
 
 struct Scal {
   float h[9];
@@ -394,10 +397,6 @@ cudaError_t launch_typed(const void* src, const float* scal, float* out,
                          int B, int H, int W, int m, int out_h, int out_w,
                          float post, int budget, unsigned int* over,
                          cudaStream_t stream) {
-  const cudaError_t attr = cudaFuncSetAttribute(
-      split_warp_kernel<T, BF16, C>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, budget);
-  if (attr != cudaSuccess) return attr;
   const dim3 block(kBX, kBY);
   const dim3 grid((out_w + kTW - 1) / kTW, (out_h + kTH - 1) / kTH, B);
   split_warp_kernel<T, BF16, C><<<grid, block, budget, stream>>>(
@@ -413,16 +412,17 @@ extern "C" {
 // src: (B, H, W, C) contiguous on device: RGB (C = 3) uint8 (src_u8 != 0)
 // or float32 with bf16 or f32 weights, or raw depth (C = 1) float32 with
 // f32 weights. scal: (B, 15) float32; out: (B, C, out_h, out_w) float32.
-// budget: the shared-memory bytes a tile may stage (0 computes every tile
-// from the canvas directly); over: a device counter, plus 1 for each tile
-// over the budget. Launches on `stream` and returns cudaGetLastError() of
+// budget: the shared-memory bytes a tile may stage, at most 47 KB (a
+// launch then needs no function attribute; 0 computes every tile from the
+// canvas directly); over: a device counter, plus 1 for each tile over
+// the budget. Launches on `stream` and returns cudaGetLastError() of
 // the launch.
 int split_warp_launch(const void* src, int src_u8, const float* scal,
                       float* out, int B, int H, int W, int C, int m,
                       int out_h, int out_w, float post_scale, int bf16,
                       int budget, unsigned int* over, void* stream) {
   if (B < 1 || B > 65535 || m < 2 || out_h < 1 || out_w < 1 || budget < 0
-      || budget > 200 * 1024 || over == nullptr)
+      || budget > kMaxBudget || over == nullptr)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (C == 1) {

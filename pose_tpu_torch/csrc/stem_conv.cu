@@ -28,9 +28,10 @@
 //
 // One block takes 1024 consecutive output pixels of one image (NHWC order,
 // so its output is one contiguous run of memory). It stages the packed
-// weight in shared memory in the B-fragment order of
-// mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32 (one 8-byte read per lane
-// and n-tile), and the input rows under its pixels (2 * span + 8 rows for
+// weight in shared memory as the B operand of
+// wgmma.mma_async.m64n64k16.f32.bf16.bf16 (K-major 8 x 8 core matrices,
+// read by the tensor cores through a descriptor), and the input rows
+// under its pixels (2 * span + 8 rows for
 // an output span of `span` rows, 8 when 1024 pixels of 129-wide rows) as
 // bf16, channels padded to 4, with the 3-pixel zero border applied in the
 // index math. The input is read through its four strides, so the model's
@@ -40,8 +41,10 @@
 // 2 ox + kw, channel pair) for every k-step, which no bank serves twice.
 // The staging reads four pixels (or 16-byte weight vectors) per thread
 // before it stores any, so their latencies overlap. Each warp computes 32
-// pixels x 64 channels per round (2 m-tiles x 8 n-tiles of f32
-// accumulators), then writes a bf16 output through a padded per-warp
+// pixels x 64 channels per round: two wgmma per k-step, each of its
+// warpgroup's 4 x 16 pixels with A from registers (the m16n8k16 fragment
+// layout), one k-step in flight while the next one's A is read. Then it
+// writes a bf16 output through a padded per-warp
 // tile in shared memory as 16-byte vectors (full 128-byte lines, one
 // pixel each), and an f32 output straight from the fragments (4 lanes
 // fill each 32-byte sector).
@@ -51,8 +54,14 @@
 // (0.09 ms) at 3.35 TB/s, against 26.7 GFLOP, 0.027 ms at the 989 TFLOP/s
 // bf16 tensor rate (30.5 GFLOP with the K padding): the output writes
 // bound it. The first version summed on the CUDA cores (f32 FMA, 0.40 ms at
-// best for the arithmetic alone) and took 1.17 ms; this one takes about
-// 0.12 ms (PERF.md). The tensor cores sum each k-group in
+// best for the arithmetic alone) and took 1.17 ms; an mma.sync form 0.12
+// ms, its k-loop at ~2/3 of the tensor rate; this one about 0.11 ms
+// (PERF.md). What holds it there (tools/kernel_ablation.py): its three
+// parts run one after another, not overlapped: the output writes alone
+// take about the byte bound (0.046 ms), the staging and the k-loop (now at
+// the tensor rate) about 0.031 ms each. Overlapping them (asynchronous
+// staging of the next rows, stores behind the next round's wgmma) is the
+// next step. The tensor cores sum each k-group in
 // their own order (aligning the products to the largest exponent), so the
 // result is within K * 2^-23 of sum |terms| of the plain f32 conv, no
 // longer equal to it bit for bit.
@@ -91,14 +100,66 @@ __host__ __device__ inline int span_max(int ow) {
   return (kBlockPx + ow - 2) / ow;
 }
 
-__device__ __forceinline__ void mma16816(float d[4], const uint32_t a[4],
-                                         uint2 b) {
+// the staged input rows' bytes, rounded up to 1024 so that the weight
+// after them is aligned for wgmma's descriptors
+__host__ __device__ inline size_t x_region(int nrow, int ncol, int cp) {
+  return ((size_t)nrow * ncol * cp * 2 + 1023) / 1024 * 1024;
+}
+
+// wgmma.mma_async m64n64k16, bf16 in, f32 sums: A (this warp's 16 rows x
+// 16 k, the m16n8k16 A-fragment layout) from registers, B (16 k x 64 n)
+// from shared memory through `desc`; d the warp's 16 x 64 accumulators in
+// the m16n8 C-fragment layout of each n8 tile (d[4 j + e] = tile j's e).
+__device__ __forceinline__ void wgmma64(float d[32], const uint32_t a[4],
+                                        uint64_t desc) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// keeps the compiler from moving accesses of r across the wgmma fences
+__device__ __forceinline__ void pin(float& r) {
+  asm volatile("" : "+f"(r)::"memory");
+}
+
+__device__ __forceinline__ void pin(uint32_t& r) {
+  asm volatile("" : "+r"(r)::"memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// the shared-memory matrix descriptor of B at shared address `addr`:
+// K-major, no swizzle, 8 x 8 core matrices of 128 contiguous bytes, the
+// two of a k-step 128 bytes apart (leading offset), the eight n-groups 256
+// bytes apart (stride offset)
+__device__ __forceinline__ uint64_t b_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3ffff) >> 4) | ((uint64_t)(128 >> 4) << 16)
+         | ((uint64_t)(256 >> 4) << 32);
 }
 
 __device__ __forceinline__ void put2(float* p, float a, float b) {
@@ -124,10 +185,10 @@ stem_conv_kernel(const __nv_bfloat16* __restrict__ x, long long sb,
   const int row_words = ncol * CP / 2;
   __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem16);
   const uint32_t* xw = reinterpret_cast<const uint32_t*>(smem16);
-  const size_t x_bytes = ((size_t)nrow * ncol * CP * 2 + 15) / 16 * 16;
-  uint2* ws = reinterpret_cast<uint2*>(reinterpret_cast<char*>(smem16)
-                                       + x_bytes);
-  OutT* stage = reinterpret_cast<OutT*>(ws + L::KSTEPS * kNT * 32);
+  const size_t x_bytes = x_region(nrow, ncol, CP);
+  unsigned short* wsh = reinterpret_cast<unsigned short*>(
+      reinterpret_cast<char*>(smem16) + x_bytes);
+  OutT* stage = reinterpret_cast<OutT*>(wsh + L::K * kCout);
 
   const int b = blockIdx.y;
   const int npx = OH * OW;
@@ -136,12 +197,11 @@ stem_conv_kernel(const __nv_bfloat16* __restrict__ x, long long sb,
   const int oy_first = p0 / OW;
   const int tid = threadIdx.x;
 
-  // the packed (K, 64) weight in B-fragment order: for k-step s, n-tile j
-  // and lane (g = lane / 4, t = lane % 4), {w[16 s + 2 t .. + 1][8 j + g],
-  // w[16 s + 8 + 2 t .. + 1][8 j + g]} as bf16 pairs. Read as 16-byte
-  // vectors (8 columns of one row), each scattered to 8 lanes' entries.
+  // the packed (K, 64) weight as wgmma's B operand: k-step s at 2048 s
+  // bytes, its core matrix (k half h, n-group j) at + 256 j + 128 h, row n
+  // % 8 of it at + 16 (n % 8), holding k % 8 = 0..7. Read as 16-byte
+  // vectors (8 columns of one row), each scattered to 8 core-matrix rows.
   constexpr int kW4 = L::K * kCout / 8;
-  unsigned short* wsh = reinterpret_cast<unsigned short*>(ws);
   for (int i0 = 0; i0 < kW4; i0 += kLoads * kThreads) {
     uint4 v[kLoads];
 #pragma unroll
@@ -153,12 +213,12 @@ stem_conv_kernel(const __nv_bfloat16* __restrict__ x, long long sb,
     for (int k = 0; k < kLoads; ++k) {
       const int i = i0 + k * kThreads + tid;
       if (i >= kW4) continue;
-      const int kk = i >> 3, j = i & 7, kr = kk & 15;
-      const int entry = ((kk >> 4) * kNT + j) * 32 + ((kr & 7) >> 1);
-      const int slot = (kr >> 3) * 2 + (kr & 1);
+      const int kk = i >> 3, j = i & 7;
+      const int base = (kk >> 4) * 1024 + j * 128 + ((kk >> 3) & 1) * 64
+                       + (kk & 7);
       const unsigned short* e = reinterpret_cast<const unsigned short*>(&v[k]);
 #pragma unroll
-      for (int g = 0; g < 8; ++g) wsh[(entry + 4 * g) * 4 + slot] = e[g];
+      for (int g = 0; g < 8; ++g) wsh[base + 8 * g] = e[g];
     }
   }
   // input rows 2 oy_first - 3 + rr, columns c - 3, zero outside the image
@@ -197,6 +257,8 @@ stem_conv_kernel(const __nv_bfloat16* __restrict__ x, long long sb,
         reinterpret_cast<unsigned short*>(xs)[i] = (unsigned short)v[k].x;
     }
   }
+  // the weight is read by wgmma through the async proxy
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   __syncthreads();
 
   const int warp = tid >> 5, lane = tid & 31;
@@ -208,9 +270,13 @@ stem_conv_kernel(const __nv_bfloat16* __restrict__ x, long long sb,
   OutT* st = stage + warp * 16 * SS;
   OutT* ob = out + (size_t)b * npx * kCout;
 
+  const uint64_t desc0 = b_desc((uint32_t)__cvta_generic_to_shared(wsh));
   for (int round = 0; round < kRounds; ++round) {
+    // the warpgroup (4 warps) runs its rounds together: wgmma is one
+    // instruction of all four; a warp past the image's end computes on
+    // its last pixel and writes nothing
+    if (p0 + (round * kWarps + (warp & ~3)) * kChunk >= p1) break;
     const int q0 = p0 + (round * kWarps + warp) * kChunk;
-    if (q0 >= p1) break;
     // word offsets of the pixels of rows g and g + 8 of each m-tile
     int aoff[kMT][2];
 #pragma unroll
@@ -228,7 +294,10 @@ stem_conv_kernel(const __nv_bfloat16* __restrict__ x, long long sb,
 #pragma unroll
       for (int j = 0; j < kNT; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.f;
+        for (int e = 0; e < 4; ++e) {
+          acc[mt][j][e] = 0.f;
+          pin(acc[mt][j][e]);
+        }
 
 #pragma unroll
     for (int s = 0; s < L::KSTEPS; ++s) {
@@ -236,34 +305,45 @@ stem_conv_kernel(const __nv_bfloat16* __restrict__ x, long long sb,
       const int koff = CIN == 1 ? 2 * s * row_words
                                 : (s >> 1) * row_words + 8 * (s & 1);
       const int khi = CIN == 1 ? row_words : 4;
-      uint2 bf[kNT];
-#pragma unroll
-      for (int j = 0; j < kNT; ++j) bf[j] = ws[(s * kNT + j) * 32 + lane];
+      uint32_t a[kMT][4];
 #pragma unroll
       for (int mt = 0; mt < kMT; ++mt) {
-        uint32_t a[4];
-        a[0] = xw[aoff[mt][0] + koff];
-        a[1] = xw[aoff[mt][1] + koff];
-        a[2] = xw[aoff[mt][0] + koff + khi];
-        a[3] = xw[aoff[mt][1] + koff + khi];
+        a[mt][0] = xw[aoff[mt][0] + koff];
+        a[mt][1] = xw[aoff[mt][1] + koff];
+        a[mt][2] = xw[aoff[mt][0] + koff + khi];
+        a[mt][3] = xw[aoff[mt][1] + koff + khi];
         if (CIN == 1) {
-          a[0] &= kw7_mask;
-          a[1] &= kw7_mask;
+          a[mt][0] &= kw7_mask;
+          a[mt][1] &= kw7_mask;
           if (s == L::KSTEPS - 1) {       // kh = 7
-            a[2] = 0u;
-            a[3] = 0u;
+            a[mt][2] = 0u;
+            a[mt][3] = 0u;
           } else {
-            a[2] &= kw7_mask;
-            a[3] &= kw7_mask;
+            a[mt][2] &= kw7_mask;
+            a[mt][3] &= kw7_mask;
           }
         } else if (s & 1) {
-          a[2] &= kw7_mask;
-          a[3] &= kw7_mask;
+          a[mt][2] &= kw7_mask;
+          a[mt][3] &= kw7_mask;
         }
 #pragma unroll
-        for (int j = 0; j < kNT; ++j) mma16816(acc[mt][j], a, bf[j]);
+        for (int r = 0; r < 4; ++r) pin(a[mt][r]);
       }
+      wgmma_fence();
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt)
+        wgmma64(&acc[mt][0][0], a[mt], desc0 + (uint64_t)(s * (2048 >> 4)));
+      wgmma_commit();
+      // one k-step in flight while the next one's A is read
+      wgmma_wait<1>();
     }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int j = 0; j < kNT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) pin(acc[mt][j][e]);
 
     // out, bf16: each m-tile through the warp's padded tile, as 16-byte
     // vectors (full 128-byte lines, one pixel each); f32: each lane's
@@ -271,7 +351,7 @@ stem_conv_kernel(const __nv_bfloat16* __restrict__ x, long long sb,
 #pragma unroll
     for (int mt = 0; mt < kMT; ++mt) {
       const int qm = q0 + 16 * mt;
-      if (sizeof(OutT) == 4) {
+      if constexpr (sizeof(OutT) == 4) {
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int q = qm + 8 * h + g;
@@ -281,26 +361,26 @@ stem_conv_kernel(const __nv_bfloat16* __restrict__ x, long long sb,
             put2(ob + (size_t)q * kCout + 8 * j + 2 * t,
                  acc[mt][j][2 * h], acc[mt][j][2 * h + 1]);
         }
-        continue;
-      }
+      } else {
 #pragma unroll
-      for (int j = 0; j < kNT; ++j) {
-        put2(st + g * SS + 8 * j + 2 * t, acc[mt][j][0], acc[mt][j][1]);
-        put2(st + (g + 8) * SS + 8 * j + 2 * t, acc[mt][j][2],
-             acc[mt][j][3]);
-      }
-      __syncwarp();
-      const int nv = min(16, p1 - qm);
-      constexpr int kVecRow = kCout * (int)sizeof(OutT) / 16;
-      if (nv > 0) {
-        uint4* dst = reinterpret_cast<uint4*>(ob + (size_t)qm * kCout);
-        for (int v = lane; v < nv * kVecRow; v += 32) {
-          const int r = v / kVecRow, cv = v - r * kVecRow;
-          dst[v] = *reinterpret_cast<const uint4*>(
-              st + r * SS + cv * (16 / (int)sizeof(OutT)));
+        for (int j = 0; j < kNT; ++j) {
+          put2(st + g * SS + 8 * j + 2 * t, acc[mt][j][0], acc[mt][j][1]);
+          put2(st + (g + 8) * SS + 8 * j + 2 * t, acc[mt][j][2],
+               acc[mt][j][3]);
         }
+        __syncwarp();
+        const int nv = min(16, p1 - qm);
+        constexpr int kVecRow = kCout * (int)sizeof(OutT) / 16;
+        if (nv > 0) {
+          uint4* dst = reinterpret_cast<uint4*>(ob + (size_t)qm * kCout);
+          for (int v = lane; v < nv * kVecRow; v += 32) {
+            const int r = v / kVecRow, cv = v - r * kVecRow;
+            dst[v] = *reinterpret_cast<const uint4*>(
+                st + r * SS + cv * (16 / (int)sizeof(OutT)));
+          }
+        }
+        __syncwarp();
       }
-      __syncwarp();
     }
   }
 }
@@ -308,9 +388,8 @@ stem_conv_kernel(const __nv_bfloat16* __restrict__ x, long long sb,
 template <int CIN, typename OutT>
 size_t smem_bytes(int ow) {
   using L = Layout<CIN>;
-  const size_t nrow = 2 * span_max(ow) + 8, ncol = 2 * ow + 6;
-  return (nrow * ncol * L::CP * 2 + 15) / 16 * 16
-         + (size_t)L::KSTEPS * kNT * 32 * sizeof(uint2)
+  const int nrow = 2 * span_max(ow) + 8, ncol = 2 * ow + 6;
+  return x_region(nrow, ncol, L::CP) + (size_t)L::K * kCout * 2
          + (sizeof(OutT) == 2 ? (size_t)kWarps * 16 * kStageStride * 2 : 0);
 }
 

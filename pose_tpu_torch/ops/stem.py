@@ -199,11 +199,19 @@ class StemConv(nn.Conv2d):
         return F.conv2d(x, w, stride=2, padding=3)
 
     def _packed(self):
-        """(HWIO weight, pack_weight of it), made again only when the weight
-        changes (its storage, version, dtype or device)."""
+        """(HWIO weight, pack_weight of it) of the weight this forward sees,
+        kept for the next forward while that is the same tensor object, on
+        the same memory, at the same version (every in-place update bumps
+        it; writes through `.data` do not, as autograd does not see them
+        either). The kept entry holds the tensor and an alias of its
+        memory, so neither can be freed and its address reused while the
+        entry stands: functional_call's fresh casts (the test epochs' eval
+        step) are packed anew each time, a Predictor's bf16 weights once."""
         w = self.weight
-        key = (w.data_ptr(), w._version, w.dtype, w.device)
-        if self._pack is None or self._pack[0] != key:
+        kept = self._pack
+        if (kept is None or kept[0] is not w or kept[2] != w._version
+                or kept[1].data_ptr() != w.data_ptr()):
             w_hwio = w.detach().permute(2, 3, 1, 0).contiguous()
-            self._pack = (key, w_hwio, pack_weight(w_hwio))
-        return self._pack[1:]
+            kept = (w, w.detach(), w._version, w_hwio, pack_weight(w_hwio))
+            self._pack = kept
+        return kept[3:]

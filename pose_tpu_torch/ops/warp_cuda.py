@@ -13,11 +13,17 @@ pose_tpu/ops/warp_pallas.py::_split_kernel via `warp_batch_split_pallas`).
   dense stage-A dots and the two-pass matmul stage B in f32 (JAX
   `warp_batch_split(..., stage_b='mxu')`). The CPU and the tests use it;
   nothing on the CUDA path calls it.
+- `launch_direct` — the same launch with a budget of 0: every tile from
+  the canvas directly, the same bits; the checks hold the staged tiles
+  against it.
+- `over_budget_tiles` — the kernel's device counter of tiles over
+  `SMEM_BUDGET` (computed from the canvas directly); a read syncs, so
+  only checks read it.
 - `tile_footprints`, `staged_bytes`, `over_budget_count` — the kernel's
-  tiling on the host: each output tile's footprint in the intermediate,
-  the shared memory its staged path needs, and how many tiles of a batch
-  exceed `SMEM_BUDGET` (the kernel computes those from the canvas directly
-  and counts them in a device counter, `over_budget_tiles`).
+  tiling mirrored on the host for the tests and the kernel checks: each
+  output tile's footprint in the intermediate, the shared memory its
+  staged path needs (the kernel's `staged_bytes` is the definition), and
+  how many tiles of a batch exceed a budget.
 - `band_ok_v2` — the host gate of the banded TPU kernel (warp_pallas.py:288,
   numpy). The CUDA kernel computes the unbanded warp, which equals the TPU
   kernel's result exactly where this gate admits the batch.
@@ -38,7 +44,8 @@ _lib = None
 # an output tile of the kernel (rows, columns) and the shared memory a tile
 # may stage (bytes), allocated to every block: the loader's crops need up
 # to 26 KB from uint8 RGB canvases and 15 KB from f32 depth ones, 42 KB from
-# f32 RGB ones (tile_footprints); 40 KB keeps 4 blocks on an H100 SM
+# f32 RGB ones (tile_footprints); 40 KB keeps 4 blocks on an H100 SM and
+# stays under the 48 KB a launch may take without a function attribute
 TILE = (16, 32)
 SMEM_BUDGET = 40 * 1024
 _over = {}                  # device -> the kernel's over-budget counter
@@ -233,13 +240,7 @@ def over_budget_tiles(device, reset=False):
     return n
 
 
-def launch(canvases, scal, out, m, post_scale, wdtype, budget=SMEM_BUDGET):
-    """One launch of the kernel on the current stream, with no checks and
-    no count: checked (B, H, W, C) canvases, (B, 15) scalars from
-    `pack_scalars`, and an allocated (B, C, out_h, out_w) f32 `out`.
-    `split_warp` calls it; a benchmark can time the kernel alone with it.
-    `budget` is the shared memory a tile may stage; 0 computes every tile
-    from the canvas directly (the same result, bit for bit)."""
+def _launch(canvases, scal, out, m, post_scale, wdtype, budget):
     lib = build()
     b, src_h, src_w, n_ch = canvases.shape
     with torch.cuda.device(canvases.device):
@@ -247,9 +248,24 @@ def launch(canvases, scal, out, m, post_scale, wdtype, budget=SMEM_BUDGET):
             canvases.data_ptr(), int(canvases.dtype == torch.uint8),
             scal.data_ptr(), out.data_ptr(), b, src_h, src_w, n_ch, m,
             out.shape[2], out.shape[3], float(post_scale),
-            int(wdtype == torch.bfloat16), int(budget),
+            int(wdtype == torch.bfloat16), budget,
             over_counter(canvases.device).data_ptr(), cuda_stream(canvases))
     check_launch(lib, err, 'split_warp')
+
+
+def launch(canvases, scal, out, m, post_scale, wdtype):
+    """One launch of the kernel on the current stream, with no checks and
+    no count: checked (B, H, W, C) canvases, (B, 15) scalars from
+    `pack_scalars`, and an allocated (B, C, out_h, out_w) f32 `out`.
+    `split_warp` calls it; a benchmark can time the kernel alone with it."""
+    _launch(canvases, scal, out, m, post_scale, wdtype, SMEM_BUDGET)
+
+
+def launch_direct(canvases, scal, out, m, post_scale, wdtype):
+    """`launch` with a budget of 0: every tile computed from the canvas
+    directly, as an over-budget tile is. The same bits as `launch`; the
+    checks compare the two."""
+    _launch(canvases, scal, out, m, post_scale, wdtype, 0)
 
 
 # ------------------------------------------------------- tiles on the host
@@ -275,8 +291,6 @@ def tile_footprints(residual, scale, extents, out_hw, m, tile=TILE):
     (warp.col_map and the row map at each tap column). (B, 3, 3) residual,
     (B, 2, 2) scale, (B, 2) extents -> (B, tiles_y, tiles_x, 4) int64
     [pmin, pmax, qmin, qmax]; an empty footprint has pmin > pmax."""
-    from . import warp
-
     h = residual.detach().to('cpu', torch.float32).reshape(-1, 9)
     b = h.shape[0]
     out_h, out_w = out_hw

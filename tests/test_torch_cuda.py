@@ -120,8 +120,9 @@ def test_staged_tiles_equal_direct_tiles(dev, kind, small_extents):
     staged = warp_cuda.split_warp(*args)
     over = warp_cuda.over_budget_tiles(dev, reset=True)
     direct = torch.empty_like(staged)
-    warp_cuda.launch(canv, warp_cuda.pack_scalars(residual, scale, ext),
-                     direct, m, post, wdtype, budget=0)
+    warp_cuda.launch_direct(canv, warp_cuda.pack_scalars(residual, scale,
+                                                         ext),
+                            direct, m, post, wdtype)
     over0 = warp_cuda.over_budget_tiles(dev, reset=True)
     assert torch.equal(staged, direct)
     assert over == warp_cuda.over_budget_count(

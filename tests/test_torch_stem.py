@@ -305,3 +305,49 @@ def test_stem_packs_its_weight_once_per_version():
     assert repacked is not packed
     assert torch.equal(w_new, conv.weight.detach().permute(2, 3, 1, 0))
     assert torch.equal(repacked, stem.pack_weight(w_new))
+
+
+def test_stem_packs_each_eval_step_cast_anew():
+    """The test epochs' eval step (steps._apply) casts the f32 masters to
+    bf16 inside functional_call on every call: a fresh tensor each time,
+    often at an address an earlier one had. With the masters changed
+    between such forwards, the stem runs on the new weights each time: its
+    output is the plain conv of the current bf16 weights, rounded to bf16,
+    and differs from the last."""
+    from pose_tpu_torch.train import steps
+
+    conv = stem.StemConv(4)
+    x, w = operands(23, 2, 4, 33)
+    with torch.no_grad():
+        conv.weight.copy_(w.float().permute(3, 2, 0, 1))
+    outs, masters = [], []
+    for _ in range(12):
+        with torch.no_grad():
+            outs.append(steps._apply(conv, (x,), False, torch.bfloat16))
+            masters.append(conv.weight.detach().clone())
+            conv.weight.mul_(-0.5)
+    for out, w in zip(outs, masters):
+        want = stem.stem_conv_plain(x, w.to(torch.bfloat16))
+        assert torch.equal(out, want.to(torch.bfloat16).float())
+    assert not any(torch.equal(a, b) for a, b in zip(outs, outs[1:]))
+
+
+def test_stem_packs_a_new_tensor_on_reused_memory_anew():
+    """A fresh weight tensor on the memory of the one packed last, at the
+    same version (what the allocator gives when it reuses a freed cast),
+    is packed anew: the second forward is the plain conv of its own
+    weights."""
+    conv = stem.StemConv(4).to(torch.bfloat16)
+    x, w = operands(24, 1, 4, 33)
+    mem = torch.empty((64, 4, 7, 7), dtype=torch.bfloat16)
+    outs = []
+    for sign in (1.0, -1.0):
+        mem.copy_(sign * w.permute(3, 2, 0, 1))
+        fresh = torch.empty(0, dtype=torch.bfloat16).set_(
+            mem.untyped_storage(), 0, mem.shape, mem.stride())
+        with torch.no_grad():
+            out = torch.func.functional_call(conv, {'weight': fresh}, (x,))
+        want = stem.stem_conv_plain(x, sign * w.permute(3, 2, 0, 1))
+        assert torch.equal(out, want.to(torch.bfloat16))
+        outs.append(out)
+    assert not torch.equal(*outs)
