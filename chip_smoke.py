@@ -2,13 +2,14 @@
 GPU: the quickest proof that the port still starts on the card.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --only split,split_depth,stem,banded   # kernels
+    python3 chip_smoke.py --only split,split_depth,stem,banded,int8
 
 `--only` also runs from the root of an earlier checkout whose wrappers
 predate staged split tiles and the packed stem weight (no
-warp_cuda.launch_direct, no stem.pack_weight): it then times that
-checkout's kernels at the same shapes and leaves out the staged-vs-direct
-check, which is how the earlier kernels' times beside the new ones are
+warp_cuda.launch_direct, no stem.pack_weight), or the fused int8 conv (no
+int8_conv.quantized_conv): it then times that checkout's kernels at the
+same shapes and leaves out the staged-vs-direct check and the fused op's
+checks, which is how the earlier kernels' times beside the new ones are
 taken.
 
 Phases (any failure exits non-zero; no exception is swallowed):
@@ -109,12 +110,21 @@ Phases (any failure exits non-zero; no exception is swallowed):
      fusion, partial_depth, partial_fusion) at full width, bf16 on the card
      against f32 on the CPU with the same weights, on the head features;
      (b) the quantized rgb Predictor (calibrated on 2 batches): the int8
-     kernel's own phase, bit-equal to its plain version (exact f64 sums)
+     kernels' own phase (nvcc -Xptxas -v's registers and spills first):
      at every distinct conv shape of the quantized forward at batch 8,
-     the heads included, at +-127 and at B=1, the five costliest shapes
-     timed beside the bound, cuDNN's bf16 conv and torch._int_mm on an
-     unfold; then 2 served batches (int8 launches, no stem launch, ms
-     beside bf16) and the card against the CPU's quantized forward; (c)
+     the heads included, the exact form (int8_conv) bit-equal to its
+     plain version (exact f64 sums), quantized_conv bit-equal to
+     quantized_conv_plain for bf16 and f32 inputs, int32 and bf16
+     accumulators, with and without bias, and the quantize pass on each
+     input; both at +-127 and at B=1; the five costliest shapes timed:
+     the exact form beside the bound, cuDNN's bf16 conv and
+     torch._int_mm on an unfold, the QuantizedConv as a call, the fused
+     op's two kernels beside the fused bound and the plain passes around
+     the exact form, the quantize pass beside its bound; then 2 served
+     batches (conv and quantize launches, no exact-form and no stem
+     launch, ms beside bf16 and beside PR 9's route of plain passes, the
+     profiled batch's kernels on both) and the card against the CPU's
+     quantized forward; (c)
      pose_tpu_torch.predict in-process: the entry's best.pth with
      cmu_train.sh's model flags on 16 HD frames, two people each, with a
      -camera JSON, then with -quantize -calib_batches 2 -track_ids; the
@@ -682,14 +692,14 @@ def serve_breakdown(predictor, frames, homs, ext):
         print(f'  {t:8.3f} ms  {n:4d}x  {name[:100]}', flush=True)
 
 
-def device_ms(launches, iters, flush=None):
+def device_ms(launches, iters, flush=None, each=False):
     """Median device time in ms of one call of each launcher, from the
     profiler's CUDA records over `iters` rounds under one profiler
     (the kernels' own time, without the host time of their wrappers).
     `launches` maps a name to (launch, match, per_call): launch() makes
     `per_call` distinct kernels whose names contain `match`; its time is
-    the sum of their medians. With `flush`, the L2 is overwritten before
-    every call."""
+    the sum of their medians (with `each`, {kernel name: median} in its
+    place). With `flush`, the L2 is overwritten before every call."""
     for fn, _, _ in launches.values():
         for _ in range(3):
             fn()
@@ -697,12 +707,13 @@ def device_ms(launches, iters, flush=None):
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     # the profiler's CUDA records now and then miss launches (49, once 29,
-    # of 50 seen on the card): the rounds are run again under a new
-    # profiler, 3 times at most, until each kernel has records of 0.8 *
-    # iters calls; each kernel's median over the records kept, summed over
-    # the call's kernels
+    # of 50 seen on the card; once 10 of 3 x 20 of a kernel that follows
+    # another in one call): the rounds are run again under a new profiler,
+    # 5 times at most, until each kernel has records of 0.8 * iters calls;
+    # each kernel's median over the records kept, summed over the call's
+    # kernels
     records = {name: {} for name in launches}
-    for attempt in range(1, 4):
+    for attempt in range(1, 6):
         with torch.profiler.profile(activities=acts) as prof:
             for _ in range(iters):
                 for fn, _, _ in launches.values():
@@ -730,10 +741,14 @@ def device_ms(launches, iters, flush=None):
         if all(len(records[name]) == per_call and counts[name][0]
                >= 0.8 * iters for name, (_, _, per_call) in
                launches.items()):
+            if each:
+                return {name: {k: float(np.median(v))
+                               for k, v in by_kernel.items()}
+                        for name, by_kernel in records.items()}
             return {name: float(sum(np.median(v) for v in by_kernel.values()))
                     for name, by_kernel in records.items()}
     raise RuntimeError(f'chip_smoke: the profiler kept {counts} records of '
-                       f'3 x {iters} calls')
+                       f'{attempt} x {iters} calls')
 
 
 def profile_step(fn):
@@ -2925,8 +2940,9 @@ def serving_crops(rng, dev, n_batches):
 
 def int8_shapes(predictor, scales, x):
     """Every distinct conv shape of the quantized rgb forward on x with
-    every conv int8 (skip=(): the heads too): {label: (xq, QuantizedConv)}
-    with the int8 input each one sees."""
+    every conv int8 (skip=(): the heads too): {label: (x, xq,
+    QuantizedConv)} with the float input each one sees and its int8
+    codes (the plain quantize)."""
     from pose_tpu_torch import quant
 
     qmodel = quant.quantize_model(predictor.model, scales, skip=())
@@ -2940,9 +2956,9 @@ def int8_shapes(predictor, scales, x):
                  f'{g.kernel[0]}x{g.kernel[1]}/{g.stride[0]} '
                  f'd{g.dilation[0]}')
         key = (tuple(xq.shape), g)
-        if key not in {(tuple(v[0].shape), v[1].geom)
+        if key not in {(tuple(v[1].shape), v[2].geom)
                        for v in shapes.values()}:
-            shapes[label] = (xq, mod)
+            shapes[label] = (args[0], xq, mod)
 
     hooks = [m.register_forward_pre_hook(record)
              for m in quant.quantized_convs(qmodel).values()]
@@ -2956,13 +2972,27 @@ def int8_shapes(predictor, scales, x):
 
 
 def int8_work(xq, geom):
-    """(bytes, ops, M, K): the int8 input and weight read once, the int32
-    output written once; 2 ops a multiply-add."""
+    """(bytes, ops, M, K) of the exact form: the int8 input and weight read
+    once, the int32 output written once; 2 ops a multiply-add."""
     b = xq.shape[0]
     oh, ow = geom.out_hw(*xq.shape[2:])
     m, k = b * oh * ow, geom.k
     return xq.numel() + k * geom.cout + 4 * m * geom.cout, 2 * m * k * \
         geom.cout, m, k
+
+
+def int8_fused_work(x, geom, has_bias):
+    """(bytes, ops) of one quantized conv (the quantize pass and the conv
+    with its epilogue as one function): x in its dtype read once, the int8
+    weight read once, the output in x's dtype written once, the 0-d input
+    scale, the (Cout,) f32 scales and the bias in x's dtype; 2 ops a
+    multiply-add."""
+    b = x.shape[0]
+    oh, ow = geom.out_hw(*x.shape[2:])
+    m, size = b * oh * ow, x.element_size()
+    n_bytes = (x.numel() * size + geom.k * geom.cout + m * geom.cout * size
+               + 4 + 4 * geom.cout + has_bias * size * geom.cout)
+    return n_bytes, 2 * m * geom.k * geom.cout
 
 
 def int_mm_operands(xq, w_oihw, geom):
@@ -2981,20 +3011,155 @@ def int_mm_operands(xq, w_oihw, geom):
     return a, w.t()
 
 
+def passes_route(x, w_packed, geom, x_scale, scale, bias, acc_dtype):
+    """The quantized conv as PR 9 ran it: plain quantize and dequant passes
+    around the exact int8 conv (the timing's and the profile's "before")."""
+    from pose_tpu_torch.ops import int8_conv as i8
+
+    xq = torch.clamp(torch.round(x.float() / x_scale), -127, 127)
+    y = i8.int8_conv(xq.to(torch.int8), w_packed, geom)
+    if acc_dtype == torch.bfloat16:
+        y = y.to(torch.bfloat16)
+    y = y.float() * scale
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(x.dtype)
+
+
+def same_bits(a, b):
+    """a and b equal bit for bit (dtype, shape, every value's bits)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        view = {2: torch.int16, 4: torch.int32, 8: torch.int64}[
+            a.element_size()]
+        return torch.equal(a.contiguous().view(view),
+                           b.contiguous().view(view))
+    return torch.equal(a, b)
+
+
+def ptxas_report():
+    """nvcc -Xptxas -v on csrc/int8_conv.cu (the build's own output, or a
+    build of its own where the library was built before): each kernel's
+    registers and spills, printed, and its dynamic shared memory (the
+    kernel's ring, barriers, scales and biases by tile width,
+    csrc/int8_conv.cu smem_bytes)."""
+    import re
+
+    from pose_tpu_torch import cuda_build
+
+    log = cuda_build.ptxas_logs.get('int8_conv')
+    if log is None:
+        with tempfile.TemporaryDirectory() as tmp:
+            proc = subprocess.run(
+                [cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS, '-Xptxas',
+                 '-v', '-o', os.path.join(tmp, 'int8_conv_v.so'),
+                 os.path.join(cuda_build.CSRC, 'int8_conv.cu')],
+                capture_output=True, text=True, timeout=600)
+        check(proc.returncode == 0,
+              f'nvcc -Xptxas -v failed:\n{proc.stderr}')
+        log = proc.stderr
+    name, spills = None, ''
+    for line in log.splitlines():
+        m = re.search(r'int8_conv_kernelILi(\d+)ELi(\d)ELi(\d)E', line)
+        q = re.search(r'int8_quantize_kernelI(f|13__nv_bfloat16)E', line)
+        if 'Compiling entry function' in line and (m or q):
+            if m:
+                bn = int(m.group(1))
+                stages = 196608 // (1 if bn > 64 else 2) // (16384 + 128 * bn)
+                smem = (1024 + stages * (16384 + 128 * bn + 16) + 16
+                        + 8 * bn)
+                name = (f'int8_conv_kernel<BN {bn}, '
+                        f'{("vec16", "word", "byte")[int(m.group(2))]} A, '
+                        f'{("int32", "f32", "bf16")[int(m.group(3))]} out>: '
+                        f'{smem} B dynamic shared memory ({stages} stages)')
+            else:
+                name = (f'int8_quantize_kernel<'
+                        f'{"f32" if q.group(1) == "f" else "bf16"}>: no '
+                        f'shared memory')
+        elif name and 'spill' in line:
+            spills = line.strip()
+        elif name and 'Used' in line:
+            print(f'ptxas: {name}; {line.split(":", 1)[1].strip()}; {spills}',
+                  flush=True)
+            name, spills = None, ''
+
+
+def fused_inputs(x, mod, dtype, with_bias, gen):
+    """The float input in `dtype` (channels_last, as the forward gives it)
+    and a bias: the module's own where it has one, else a seeded (Cout, 1,
+    1) one in `dtype`, or None."""
+    xin = x.to(dtype).contiguous(memory_format=torch.channels_last)
+    bias = None
+    if with_bias:
+        bias = (mod.bias.to(dtype) if mod.bias is not None else torch.randn(
+            (mod.geom.cout, 1, 1), generator=gen, device=x.device).to(dtype))
+    return xin, bias
+
+
+def check_fused(x, mod, dtype, acc, bias, label, w_packed=None):
+    """quantized_conv bit-equal to quantized_conv_plain on the card, with
+    the module's geometry and scales and its weight or `w_packed`."""
+    from pose_tpu_torch.ops import int8_conv as i8
+
+    w_packed = mod.weight_packed if w_packed is None else w_packed
+    args = (w_packed, mod.geom, mod.x_scale, mod.scale, bias, acc)
+    got = i8.quantized_conv(x, *args)
+    ref = i8.quantized_conv_plain(x, *args)
+    torch.cuda.synchronize()
+    check(same_bits(got, ref) and got.is_contiguous(
+        memory_format=torch.channels_last),
+          f'quantized_conv differs from its plain version at {label} '
+          f'({dtype}, acc {acc}, bias {bias is not None}): max |diff| '
+          f'{float((got.float() - ref.float()).abs().max())}')
+
+
+def check_quantize(x, mod, label):
+    """The quantize pass against the plain quantize on x, in bf16 and f32:
+    quantized_conv with a 1x1 identity weight and unit scales writes each
+    int8 code as it is (every integer up to 127 is exact in bf16)."""
+    from pose_tpu_torch.ops import int8_conv as i8
+
+    c = x.shape[1]
+    eye = torch.eye(c, dtype=torch.int8, device=x.device)[:, :, None, None]
+    g = i8.Geometry(c, c, (1, 1), (1, 1), (0, 0), (1, 1))
+    ones = torch.ones((c, 1, 1), device=x.device)
+    for dtype in (torch.bfloat16, torch.float32):
+        xin = x.to(dtype).contiguous(memory_format=torch.channels_last)
+        got = i8.quantized_conv(xin, i8.pack_weight(eye), g, mod.x_scale,
+                                ones, None, torch.int32)
+        ref = torch.clamp(torch.round(xin.float() / mod.x_scale), -127, 127)
+        torch.cuda.synchronize()
+        check(torch.equal(got.float(), ref), f'int8 quantize pass differs '
+              f'from the plain quantize on the {dtype} input of {label}')
+
+
 def int8_phase(dev, predictor, scales, x):
-    """The int8 kernel at every distinct conv shape of the quantized rgb
-    forward at batch 8 (the heads too), equal to its plain version (exact
-    f64 sums) bit for bit; the adversarial cases; the five costliest shapes
-    by multiply-adds timed beside the bound, the plain version, cuDNN's
-    bf16 F.conv2d and torch._int_mm on an unfold. Returns the kernel row
-    (its launches are set by the main paths)."""
+    """The int8 kernels at every distinct conv shape of the quantized rgb
+    forward at batch 8 (the heads too): the exact form equal to its plain
+    version (exact f64 sums) bit for bit, and quantized_conv equal to
+    quantized_conv_plain bit for bit for bf16 and f32 inputs, int32 and
+    bf16 accumulators, with and without a bias, and the quantize pass on
+    each input; the adversarial cases; the five costliest shapes by
+    multiply-adds timed: the exact form beside the bound, the plain
+    version, cuDNN's bf16 F.conv2d and torch._int_mm on an unfold; the
+    QuantizedConv as the checkout runs it, the fused op's kernels beside
+    the fused bound and the plain passes around the exact form; the
+    quantize pass beside its bound. Returns the kernel rows (their
+    launches are set by the main paths). From an earlier checkout (no
+    quantized_conv) only the exact form and the QuantizedConv as it runs
+    there."""
     import torch.nn.functional as F
 
     from pose_tpu_torch.ops import int8_conv as i8
 
+    fused = hasattr(i8, 'quantized_conv')
+    if fused:
+        ptxas_report()
     shapes = int8_shapes(predictor, scales, x)
-    before = i8.int8_conv.launches
-    for label, (xq, mod) in shapes.items():
+    gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+    n_fused = 0
+    for label, (xf, xq, mod) in shapes.items():
         got = i8.int8_conv(xq, mod.weight_packed, mod.geom)
         ref = i8.int8_conv_plain(xq, i8.unpack_weight(mod.weight_packed,
                                                       mod.geom), mod.geom)
@@ -3002,10 +3167,19 @@ def int8_phase(dev, predictor, scales, x):
         check(torch.equal(got, ref), f'int8_conv differs from its plain '
               f'version at {label}: max |diff| '
               f'{int((got.long() - ref.long()).abs().max())}')
+        if not fused:
+            continue
+        check_quantize(xf, mod, label)
+        for dtype in (torch.bfloat16, torch.float32):
+            for acc in (torch.int32, torch.bfloat16):
+                for with_bias in (False, True):
+                    xin, bias = fused_inputs(xf, mod, dtype, with_bias, gen)
+                    check_fused(xin, mod, dtype, acc, bias, label)
+                    n_fused += 1
     # adversarial: every code at +-127 at the largest K (the sums' largest
     # magnitude, 127^2 K), and B = 1 at the stem and at a vector-path shape
-    by_k = sorted(shapes.values(), key=lambda v: v[1].geom.k)
-    xq, mod = by_k[-1]
+    by_k = sorted(shapes.values(), key=lambda v: v[2].geom.k)
+    xf, xq, mod = by_k[-1]
     g = mod.geom
     w = torch.full((g.cout, g.cin) + g.kernel, -127, dtype=torch.int8,
                    device=dev)
@@ -3015,23 +3189,45 @@ def int8_phase(dev, predictor, scales, x):
     torch.cuda.synchronize()
     check(torch.equal(got, ref) and int(got.min()) == -127 * 127 * g.k,
           f'int8_conv at +-127, K {g.k}: min {int(got.min())}')
-    for xq, mod in (by_k[0], by_k[len(by_k) // 2]):
-        one = xq[:1]
-        check(torch.equal(i8.int8_conv(one, mod.weight_packed, mod.geom),
+    if fused:
+        # every input code at 127 (x far above the calibrated range), B = 1
+        big = torch.full_like(xf, 1e4)[:1]
+        for dtype in (torch.bfloat16, torch.float32):
+            for acc in (torch.int32, torch.bfloat16):
+                for with_bias in (False, True):
+                    xin, bias = fused_inputs(big, mod, dtype, with_bias, gen)
+                    check_fused(xin, mod, dtype, acc, bias,
+                                f'+-127, K {g.k}, B=1', i8.pack_weight(w))
+                    n_fused += 1
+    for xf1, xq1, mod1 in (by_k[0], by_k[len(by_k) // 2]):
+        one = xq1[:1]
+        check(torch.equal(i8.int8_conv(one, mod1.weight_packed, mod1.geom),
                           i8.int8_conv_plain(one, i8.unpack_weight(
-                              mod.weight_packed, mod.geom), mod.geom)),
-              f'int8_conv at B=1 differs ({mod.path})')
-    n_checked = i8.int8_conv.launches - before
-    print(f'int8_conv: bit-equal to its plain version (f64 sums) at all '
-          f'{len(shapes)} distinct conv shapes of the quantized ResNet-50 '
-          f'rgb forward at batch {B} (skip=()), at +-127 with K = {g.k} '
-          f'and at B=1 ({n_checked} checked launches)', flush=True)
+                              mod1.weight_packed, mod1.geom), mod1.geom)),
+              f'int8_conv at B=1 differs ({mod1.path})')
+        if fused:
+            for dtype in (torch.bfloat16, torch.float32):
+                xin, bias = fused_inputs(xf1[:1], mod1, dtype, True, gen)
+                check_fused(xin, mod1, dtype, torch.int32, bias,
+                            f'{mod1.path} B=1')
+                n_fused += 1
+    print(f'int8_conv: the exact form bit-equal to its plain version (f64 '
+          f'sums) at all {len(shapes)} distinct conv shapes of the quantized'
+          f' ResNet-50 rgb forward at batch {B} (skip=()), at +-127 with K = '
+          f'{g.k} and at B=1; quantized_conv bit-equal to '
+          f'quantized_conv_plain in {n_fused} cases (bf16 and f32 x, int32 '
+          f'and bf16 accumulators, with and without bias, the same shapes, '
+          f'+-127, B=1), the quantize pass on every input'
+          if fused else
+          f'int8_conv (this checkout has no quantized_conv): bit-equal to '
+          f'its plain version at all {len(shapes)} shapes, +-127, B=1',
+          flush=True)
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     costliest = sorted(shapes.items(), key=lambda kv: -int8_work(
-        kv[1][0], kv[1][1].geom)[1])[:5]
-    timed = {}
-    for label, (xq, mod) in costliest:
+        kv[1][1], kv[1][2].geom)[1])[:5]
+    timed, quantize = {}, {}
+    for label, (xf, xq, mod) in costliest:
         g = mod.geom
         n_bytes, n_ops, m, k = int8_work(xq, g)
         oh, ow = g.out_hw(*xq.shape[2:])
@@ -3059,25 +3255,79 @@ def int8_phase(dev, predictor, scales, x):
                   flush=True)
             same, int_mm_ms = None, None
         bound, by = bound_of(n_bytes, n_ops, INT8_OP_PER_S)
-        print(f'int8_conv {label}: M {m} N {g.cout} K {k}; kernel '
-              f'{ms:.5f} ms ({n_ops / ms / 1e9:.1f} TOP/s), bound '
-              f'{bound:.5f} ms by {by} ({100 * bound / ms:.1f} % of it); '
-              f'plain (f64) {plain_ms:.4f} ms; cuDNN bf16 F.conv2d '
-              f'{cudnn_ms:.4f} ms; torch._int_mm on the unfold '
-              f'{int_mm_ms if int_mm_ms is None else f"{int_mm_ms:.4f}"} ms'
-              f' (equal to the kernel: {same})', flush=True)
-        timed[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                            bound_by=by, library_ms=cudnn_ms,
-                            int_mm_ms=int_mm_ms, macs=n_ops // 2)
+        # the QuantizedConv as this checkout runs it, host time included
+        # (the serving forward is host-bound), on the forward's own input
+        route_ms = time_ms(lambda: mod(xf), 20, flush)
+        row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                   library_ms=cudnn_ms, int_mm_ms=int_mm_ms,
+                   route_ms=route_ms, macs=n_ops // 2)
+        line = (f'int8_conv {label}: M {m} N {g.cout} K {k}; exact form '
+                f'{ms:.5f} ms ({n_ops / ms / 1e9:.1f} TOP/s), bound '
+                f'{bound:.5f} ms by {by} ({100 * bound / ms:.1f} % of it); '
+                f'plain (f64) {plain_ms:.4f} ms; cuDNN bf16 F.conv2d '
+                f'{cudnn_ms:.4f} ms; torch._int_mm on the unfold '
+                f'{int_mm_ms if int_mm_ms is None else f"{int_mm_ms:.4f}"} ms'
+                f' (equal to the kernel: {same}); QuantizedConv '
+                f'{route_ms:.4f} ms')
+        if fused:
+            p = i8.plan(m, g.cout, mod.weight_packed.shape[1],
+                        torch.cuda.get_device_properties(
+                            dev).multi_processor_count)
+            fb, fo = int8_fused_work(xf, g, mod.bias is not None)
+            fbound, fby = bound_of(fb, fo, INT8_OP_PER_S)
+
+            def call():
+                return i8.quantized_conv(xf, mod.weight_packed, g,
+                                         mod.x_scale, mod.scale, mod.bias,
+                                         mod.acc_dtype)
+
+            # both kernels of the call from one profiler session
+            med = device_ms({'f': (call, 'int8_', 2)}, 20, flush,
+                            each=True)['f']
+            qms = sum(v for k, v in med.items() if 'int8_quantize' in k)
+            fms = sum(med.values())
+            passes_ms = time_ms(lambda: passes_route(
+                xf, mod.weight_packed, g, mod.x_scale, mod.scale, mod.bias,
+                mod.acc_dtype), 20, flush)
+            q_bytes = xf.numel() * (xf.element_size() + 1) + 4
+            qbound, qby = bound_of(q_bytes, xf.numel())
+            q_plain = time_ms(lambda: torch.clamp(torch.round(
+                xf.float() / mod.x_scale), -127, 127).to(torch.int8), 20,
+                flush)
+            row.update(plan=f'BN {p.bn}, split {p.split}', fused_ms=fms,
+                       fused_bound_ms=fbound, fused_bound_by=fby,
+                       passes_ms=passes_ms, quantize_ms=qms,
+                       quantize_bound_ms=qbound, quantize_plain_ms=q_plain)
+            quantize[label] = dict(ms=qms, plain_ms=q_plain, bound_ms=qbound,
+                                   bound_by=qby)
+            line += (f' (one call); plan BN {p.bn} split {p.split}; fused '
+                     f'kernels (quantize + conv) {fms:.5f} ms, fused bound '
+                     f'{fbound:.5f} ms by {fby} ({100 * fbound / fms:.1f} %); '
+                     f'plain passes around the exact form {passes_ms:.4f} ms;'
+                     f' quantize pass {qms:.5f} ms, bound {qbound:.5f} ms by '
+                     f'{qby} ({100 * qbound / qms:.1f} %), plain {q_plain:.4f}'
+                     f' ms')
+        print(line, flush=True)
+        timed[label] = row
         del out, xb, wb, a, bmat
     top = timed[costliest[0][0]]
-    return dict(name='int8_conv', route='cuda',
-                source='pose_tpu_torch/csrc/int8_conv.cu',
-                replaces='pose_tpu/quant.py:226 (XLA int8 conv; no Pallas '
-                         'kernel)',
-                max_abs_err=0.0, ms=top['ms'], plain_ms=top['plain_ms'],
-                bound_ms=top['bound_ms'], bound_by=top['bound_by'],
-                library_ms=top['library_ms'], shapes=timed)
+    rows = [dict(name='int8_conv', route='cuda',
+                 source='pose_tpu_torch/csrc/int8_conv.cu',
+                 replaces='pose_tpu/quant.py:226 (XLA int8 conv; no Pallas '
+                          'kernel)',
+                 max_abs_err=0.0, ms=top['ms'], plain_ms=top['plain_ms'],
+                 bound_ms=top['bound_ms'], bound_by=top['bound_by'],
+                 library_ms=top['library_ms'], shapes=timed)]
+    if fused:
+        q = quantize[costliest[0][0]]
+        rows.append(dict(name='int8_quantize', route='cuda',
+                         source='pose_tpu_torch/csrc/int8_conv.cu',
+                         replaces='pose_tpu/quant.py:212 (XLA quantize ops; '
+                                  'no Pallas kernel)',
+                         max_abs_err=0.0, ms=q['ms'], plain_ms=q['plain_ms'],
+                         bound_ms=q['bound_ms'], bound_by=q['bound_by'],
+                         library_ms=None, shapes=quantize))
+    return rows
 
 
 def decode_err(a, b):
@@ -3154,53 +3404,119 @@ def variants_phase(dev):
     return worst
 
 
+def quant_setup(dev):
+    """The full-width quantized rgb Predictor (-half_acc, batch 8) and 4
+    seeded batches of crops; calibrated on the first 2. Returns the
+    predictor, the batches, the scales, the bf16 forward's outputs on
+    batches 3-4, its head features and ms a batch, and the calibration's
+    seconds."""
+    from pose_tpu_torch import serve
+
+    rng = np.random.RandomState(SEED + 21)
+    predictor = serve.Predictor(serving_args(), 'rgb', batch_size=B,
+                                device=dev, seed=SEED)
+    batches = serving_crops(rng, dev, 4)
+    fp = [predictor.predict_crops(x) for x in batches[2:]]
+    fp_feat = head_features(predictor, (batches[2],))
+    fp_ms = host_ms(lambda: predictor.predict_crops(batches[2]))
+    t0 = time.perf_counter()
+    scales = predictor.quantize(batches[:2])
+    torch.cuda.synchronize()
+    return predictor, batches, scales, fp, fp_feat, fp_ms, \
+        time.perf_counter() - t0
+
+
+def int8_only(dev):
+    """`--only int8`: the quantized Predictor's setup and the int8 kernels'
+    phase (also from an earlier checkout, to time its kernel)."""
+    predictor, batches, scales = quant_setup(dev)[:3]
+    return int8_phase(dev, predictor, scales, batches[2])
+
+
 def quant_phase(dev):
     """The quantized Predictor at full width (rgb, -half_acc, batch 8):
-    calibrated on 2 batches, then 2 served batches: int8 kernel launches a
-    batch, stem launches (0), ms a batch beside the bf16 forward's, the
+    calibrated on 2 batches, then 2 served batches: conv and quantize
+    kernel launches a batch, stem launches (0), ms a batch beside the bf16
+    forward's and beside the same forward with the plain passes around the
+    exact form (PR 9's route), the profiled batch's kernels on both, the
     decoded delta int8 vs bf16 (random weights), and the card against the
-    CPU's quantized forward (the plain int8 conv). Returns the int8 kernel
-    row and the int8 launches of this path."""
+    CPU's quantized forward (the plain int8 chain). Returns the int8
+    kernel rows and the launches of this path."""
     from pose_tpu_torch import quant, serve
     from pose_tpu_torch.ops import int8_conv as i8
     from pose_tpu_torch.ops import stem
 
-    rng = np.random.RandomState(SEED + 21)
-    args = serving_args()
-    predictor = serve.Predictor(args, 'rgb', batch_size=B, device=dev,
-                                seed=SEED)
-    batches = serving_crops(rng, dev, 4)
-    fp = [predictor.predict_crops(x) for x in batches[2:]]
-    fp_feat = head_features(predictor, (batches[2],))
-    fp_first, fp_ms = host_ms(lambda: predictor.predict_crops(batches[2]))
-    t0 = time.perf_counter()
-    scales = predictor.quantize(batches[:2])
-    torch.cuda.synchronize()
-    q_s = time.perf_counter() - t0
+    predictor, batches, scales, fp, fp_feat, (fp_first, fp_ms), q_s = \
+        quant_setup(dev)
+    args = predictor.args
     n_q = len(quant.quantized_convs(predictor._quant_model))
-    row = int8_phase(dev, predictor, scales, batches[2])
+    rows = int8_phase(dev, predictor, scales, batches[2])
 
+    fused = i8.quantized_conv
+    fused.launches = fused.quantize_launches = 0
     i8.int8_conv.launches = stem.stem_conv.launches = 0
     q = [predictor.predict_crops(x) for x in batches[2:]]
-    launches = i8.int8_conv.launches
+    launches = {'int8_conv': fused.launches,
+                'int8_quantize': fused.quantize_launches}
+    exact = i8.int8_conv.launches
     stem_launches = stem.stem_conv.launches
-    q_first, q_ms = host_ms(lambda: predictor.predict_crops(batches[2]))
+    # ms a batch of the three routes in turns (int8, bf16, PR 9's plain
+    # passes around the exact form, then back), all after the kernel
+    # phase's profiler sessions, so each pays the same host launch path
+    qmodel = predictor._quant_model
+
+    def route(name):
+        predictor._quant_model = None if name == 'bf16' else qmodel
+        quant.quantized_conv = passes_route if name == 'passes' else fused
+        return host_ms(lambda: predictor.predict_crops(batches[2]))[1]
+
+    turns = {'int8': [], 'bf16': [], 'passes': []}
+    try:
+        for name in ('int8', 'bf16', 'passes', 'passes', 'bf16', 'int8'):
+            turns[name].append(route(name))
+        route('passes')
+        p_wall, p_busy, p_kernels = profile_step(
+            lambda: predictor.predict_crops(batches[2]))
+        routed = i8.int8_conv.launches
+    finally:
+        predictor._quant_model = qmodel
+        quant.quantized_conv = fused
+    wall, busy, kernels = profile_step(lambda: predictor.predict_crops(
+        batches[2]))
+    q_ms, b_ms, p_ms = (float(np.mean(turns[k])) for k in turns)
+
+    def fmt(values):
+        return ', '.join(f'{v:.2f}' for v in values)
     delta = {k: max(float(np.abs(a[k] - b[k]).max()) for a, b in zip(q, fp))
              for k in q[0]}
     feat = feature_err(head_features(predictor, (batches[2],)),
                        torch.as_tensor(fp_feat))
+    n_b = len(q)
     print(f'quant: {len(scales)} calibrated convs, {n_q} int8 (the heads '
-          f'skipped) in {q_s:.2f} s; int8 kernel launches {launches} in '
-          f'{len(q)} batches ({launches // len(q)} a batch), stem kernel '
-          f'launches {stem_launches}; predict_crops at batch {B}: int8 '
-          f'{q_ms:.2f} ms (first {q_first:.2f}), bf16 {fp_ms:.2f} ms (first '
-          f'{fp_first:.2f}) (host clock, median of 3); int8 vs bf16 (random '
-          f'weights): head features {feat[0]:.4g} of their largest |value| '
+          f'skipped) in {q_s:.2f} s; in {n_b} batches conv kernel launches '
+          f'{launches["int8_conv"]} ({launches["int8_conv"] // n_b} a batch),'
+          f' quantize kernel launches {launches["int8_quantize"]} '
+          f'({launches["int8_quantize"] // n_b} a batch), exact-form '
+          f'launches {exact}, stem kernel launches {stem_launches}; '
+          f'predict_crops at batch {B} (host clock, median of 3, two turns '
+          f'each, their mean): int8 {q_ms:.2f} ms ({fmt(turns["int8"])}), '
+          f'bf16 {b_ms:.2f} ms ({fmt(turns["bf16"])}), int8 with PR 9\'s '
+          f'route (plain passes around the exact form) {p_ms:.2f} ms '
+          f'({fmt(turns["passes"])}); '
+          f'bf16 before the kernel phase {fp_ms:.2f} ms (first '
+          f'{fp_first:.2f}); a profiled int8 batch '
+          f'{sum(n for _, n in kernels.values())} kernels, busy {busy:.2f} '
+          f'of {wall:.2f} ms, with PR 9\'s route '
+          f'{sum(n for _, n in p_kernels.values())} kernels, busy '
+          f'{p_busy:.2f} of {p_wall:.2f} ms; int8 vs bf16 (random weights): '
+          f'head features {feat[0]:.4g} of their largest |value| '
           f'{feat[1]:.4g}, decoded relat_cam {delta["relat_cam"]:.4g} mm, '
           f'spec_mat {delta["spec_mat"]:.4g} px', flush=True)
-    check(launches == n_q * len(q) and stem_launches == 0,
-          f'int8 launches {launches} (want {n_q} x {len(q)}), stem '
-          f'{stem_launches} (want 0)')
+    check(launches['int8_conv'] == launches['int8_quantize'] == n_q * n_b
+          and exact == 0 and stem_launches == 0,
+          f'launches {launches} (want {n_q} x {n_b} each), exact form '
+          f'{exact} (want 0), stem {stem_launches} (want 0)')
+    check(routed > 0, 'the plain-passes route did not run the exact form')
     for out in q:
         for k, v in out.items():
             check(np.all(np.isfinite(v)), f'quantized {k} not finite')
@@ -3213,11 +3529,11 @@ def quant_phase(dev):
     err = decode_err(predictor.predict_crops(batches[2]),
                      cpu.predict_crops(batches[2].cpu()))
     print(f'quant: card vs CPU quantized forward (skip=(), the CPU on the '
-          f'plain int8 conv): relat_cam {err["relat_cam"]:.4g} mm, spec_mat '
+          f'plain int8 chain): relat_cam {err["relat_cam"]:.4g} mm, spec_mat '
           f'{err["spec_mat"]:.4g} px', flush=True)
     for k, tol in INT8_CPU_TOL.items():
         check(err[k] <= tol, f'quantized {k} card vs CPU {err[k]} > {tol}')
-    return row, launches
+    return rows, launches
 
 
 def cli_stores(tmp_e, tmp_d):
@@ -3282,8 +3598,8 @@ def predict_cli_phase(dev, tmp_e, tmp_d):
     Each run's records are finite; the first batch's first two samples,
     run again on the card and on the CPU in f32 (the same flags but
     -half_acc; the CPU with the card's bf16 warp operands), agree. Returns
-    the stem and int8 kernel launches of the card runs (the -half_acc
-    ones)."""
+    the stem, int8 conv and quantize kernel launches of the card runs (the
+    -half_acc ones)."""
     from pose_tpu_torch import predict, serve
     from pose_tpu_torch.ops import int8_conv as i8
     from pose_tpu_torch.ops import stem
@@ -3321,7 +3637,7 @@ def predict_cli_phase(dev, tmp_e, tmp_d):
                                    '-model_path', partial] + depth_in, None,
                             'ntud'),
     }
-    launches = {'stem_conv': 0, 'int8_conv': 0}
+    launches = {'stem_conv': 0, 'int8_conv': 0, 'int8_quantize': 0}
     firsts = {}
     for tag, (flags, colour, depth) in runs.items():
         def inputs(which):
@@ -3333,14 +3649,18 @@ def predict_cli_phase(dev, tmp_e, tmp_d):
                 args += ['-depth_images', os.path.join(
                     dirs[f'{depth}_{which}'], '*.png')]
             return args
-        i8.int8_conv.launches = stem.stem_conv.launches = 0
+        i8.quantized_conv.launches = stem.stem_conv.launches = 0
+        i8.quantized_conv.quantize_launches = i8.int8_conv.launches = 0
         t0 = time.perf_counter()
         blob = predict.main(flags + inputs('all') + [
             '-out', os.path.join(out, f'{tag}.json')], device=dev)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         got = {'stem_conv': stem.stem_conv.launches,
-               'int8_conv': i8.int8_conv.launches}
+               'int8_conv': i8.quantized_conv.launches,
+               'int8_quantize': i8.quantized_conv.quantize_launches}
+        check(i8.int8_conv.launches == 0, f'{tag}: the exact form ran '
+              f'{i8.int8_conv.launches} times on the CLI path')
         for k in launches:
             launches[k] += got[k]
         recs = blob['frames']
@@ -3367,7 +3687,8 @@ def predict_cli_phase(dev, tmp_e, tmp_d):
             check(same <= 0.05, 'the first -quantize batch is not the float '
                   f'forward: {same} mm')
             # the float batch and the two calibration forwards
-            check(got['stem_conv'] == 3 and got['int8_conv'] > 0,
+            check(got['stem_conv'] == 3 and got['int8_conv'] > 0
+                  and got['int8_quantize'] == got['int8_conv'],
                   f'{tag}: launches {got}')
         else:
             # the first two samples through the card and the CPU in f32,
@@ -3401,7 +3722,8 @@ def predict_cli_phase(dev, tmp_e, tmp_d):
             firsts[tag] = first
             if tag == 'a rgb':
                 cli_float = recs
-            check(got['int8_conv'] == 0 and (got['stem_conv'] > 0) == (
+            check(got['int8_conv'] == got['int8_quantize'] == 0 and (
+                got['stem_conv'] > 0) == (
                 'partial' not in tag), f'{tag}: launches {got}')
         print(f'predict ({tag}): {len(recs)} records in {n_batches} batches '
               f'of {B}, variant {blob["variant"]}; main() {wall:.2f} s, '
@@ -3418,31 +3740,33 @@ def predict_cli_phase(dev, tmp_e, tmp_d):
 
 def predict_phase(dev, tmp_e, tmp_d):
     """The predict phase: variants, the quantized Predictor with the int8
-    kernel's own phase, the CLI. Returns the int8 row and the launches of
-    its main paths."""
+    kernels' own phase, the CLI. Returns the int8 conv and quantize rows
+    and the stem's launches on the CLI."""
     t0 = time.perf_counter()
     variants_phase(dev)
-    row, quant_launches = quant_phase(dev)
+    rows, quant_launches = quant_phase(dev)
     cli = predict_cli_phase(dev, tmp_e, tmp_d)
-    row['launches_by_path'] = {'quant': quant_launches,
-                               'predict': cli['int8_conv']}
-    row['launches'] = sum(row['launches_by_path'].values())
-    check(row['launches'] > 0 and cli['int8_conv'] > 0,
-          'int8_conv was not launched on the predict path')
+    for row in rows:
+        name = row['name']
+        row['launches_by_path'] = {'quant': quant_launches[name],
+                                   'predict': cli[name]}
+        row['launches'] = sum(row['launches_by_path'].values())
+        check(quant_launches[name] > 0 and cli[name] > 0,
+              f'{name} was not launched on the quant and predict paths')
     print(f'predict: phase {time.perf_counter() - t0:.2f} s', flush=True)
-    return row, cli['stem_conv']
+    return rows, cli['stem_conv']
 
 
 def main(argv):
-    """No arguments: every phase. `--only split,split_depth,stem,banded`
-    (any of them): the build and those kernel phases, then their rows, and
-    no result line."""
+    """No arguments: every phase. `--only
+    split,split_depth,stem,banded,int8` (any of them): the build and those
+    kernel phases, then their rows, and no result line."""
     only = []
     if argv[:1] == ['--only'] and len(argv) == 2:
         only = argv[1].split(',')
     elif argv:
-        print('usage: chip_smoke.py [--only split,split_depth,stem,banded]',
-              file=sys.stderr)
+        print('usage: chip_smoke.py [--only '
+              'split,split_depth,stem,banded,int8]', file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; this script runs only on an '
@@ -3459,9 +3783,14 @@ def main(argv):
           f'device {torch.cuda.get_device_name(0)}', flush=True)
 
     t0 = time.perf_counter()
-    built = cuda_build.compile_sources(['split_warp', 'fused_bn',
-                                        'banded_warp', 'partial_conv',
-                                        'stem_conv', 'int8_conv'])
+    sources = ['split_warp', 'fused_bn', 'banded_warp', 'partial_conv',
+               'stem_conv', 'int8_conv']
+    # the int8 kernels' registers and spills from the build itself (an
+    # earlier checkout's builder has no such option)
+    if hasattr(cuda_build, 'ptxas_logs'):
+        built = cuda_build.compile_sources(sources, verbose=('int8_conv',))
+    else:
+        built = cuda_build.compile_sources(sources)
     for mod in (warp_cuda, fused_bn_cuda, warp_banded, partial_conv, stem,
                 int8_conv):
         mod.build()
@@ -3473,7 +3802,8 @@ def main(argv):
         # kernel phases alone, for measuring a kernel between full runs
         phases = {'split': split_warp_phase, 'split_depth':
                   split_warp_depth_phase, 'stem': stem_phase,
-                  'banded': lambda dev: list(banded_warp_phase(dev).values())}
+                  'banded': lambda dev: list(banded_warp_phase(dev).values()),
+                  'int8': int8_only}
         rows = []
         for p in only:
             row = phases[p](dev)
@@ -3513,7 +3843,7 @@ def main(argv):
         entry = entry_phase(dev, tmp_e)
         depth_entry = depth_entry_phase(dev, tmp_d, pooled)
         aug = augment_phase(dev, train_items, train_median)
-        int8_row, predict_stem = predict_phase(dev, tmp_e, tmp_d)
+        int8_rows, predict_stem = predict_phase(dev, tmp_e, tmp_d)
     # the split and stem kernels run on several paths: each path's count,
     # and their sum as the row's launches
     by_path = {'split_warp': {'serve': serve_launches['split_warp'],
@@ -3534,7 +3864,7 @@ def main(argv):
                              'depth_entry': depth_entry['stem_conv'],
                              'augment_entry': aug['stem_conv'],
                              'predict': predict_stem}}
-    kernels += depth_rows + [stem_row, int8_row]
+    kernels += depth_rows + [stem_row] + int8_rows
     for k in kernels:
         if k['name'] in by_path:
             k['launches_by_path'] = by_path[k['name']]

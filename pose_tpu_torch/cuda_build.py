@@ -27,6 +27,7 @@ BUILD_DIR = os.path.join(_PKG, '_build')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC')
 _loaded = {}
+ptxas_logs = {}
 
 
 def find_nvcc():
@@ -49,10 +50,12 @@ def library_path(name):
     return os.path.join(BUILD_DIR, f'{name}_{digest.hexdigest()[:16]}.so')
 
 
-def compile_sources(names):
+def compile_sources(names, verbose=()):
     """Compile every csrc/<name>.cu whose library is missing, one nvcc each,
     all started together. Returns {name: seconds} (0.0 where the library
-    was already built). Raises if nvcc is missing or any build fails."""
+    was already built). Raises if nvcc is missing or any build fails. The
+    sources in `verbose` are built with `-Xptxas -v` (the same code), and
+    what nvcc printed is kept in `ptxas_logs[name]`."""
     started, seconds = {}, {}
     for name in names:
         so = library_path(name)
@@ -61,7 +64,8 @@ def compile_sources(names):
             continue
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f'{so}.{os.getpid()}.tmp'
-        cmd = [find_nvcc(), *NVCC_FLAGS, '-o', tmp,
+        cmd = [find_nvcc(), *NVCC_FLAGS,
+               *(('-Xptxas', '-v') if name in verbose else ()), '-o', tmp,
                os.path.join(CSRC, f'{name}.cu')]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.PIPE, text=True)
@@ -75,6 +79,8 @@ def compile_sources(names):
                           f'\n{err}')
         else:
             os.replace(tmp, so)
+            if name in verbose:
+                ptxas_logs[name] = err
     if failed:
         raise RuntimeError('\n'.join(failed))
     return seconds
@@ -99,6 +105,13 @@ def check_launch(lib, err, name):
                            f'{lib.error_string(err).decode()}')
 
 
+_raw_stream = getattr(torch._C, '_cuda_getCurrentRawStream', None)
+
+
 def cuda_stream(t):
-    """The current CUDA stream of tensor t's device, as a launch argument."""
+    """The current CUDA stream of tensor t's device, as a launch argument
+    (the raw handle straight from PyTorch's C side where it has one: a
+    Stream object costs microseconds of host time a launch)."""
+    if _raw_stream is not None:
+        return _raw_stream(t.device.index)
     return torch.cuda.current_stream(t.device).cuda_stream

@@ -9,7 +9,9 @@ pose_tpu/quant.py).
   input's absmax (`Calibrator`);
 - accumulation: exact int32 sums in the hand-written int8 conv
   (`ops/int8_conv.py`), dequantized to the compute dtype before the BN and
-  ReLU that follow.
+  ReLU that follow; on the card each QuantizedConv is one call,
+  `ops/int8_conv.quantized_conv` (the quantize pass and the conv with the
+  dequant in its epilogue).
 
 JAX's two Flax method interceptors become torch idiom: calibration is a
 forward pre-hook on every `nn.Conv2d` (the stems' `StemConv` included)
@@ -42,7 +44,7 @@ import torch
 from torch import nn
 
 from .models.convert import to_jax_path
-from .ops.int8_conv import Geometry, int8_conv, pack_weight
+from .ops.int8_conv import Geometry, pack_weight, quantized_conv
 
 # regressor heads (rgb dual heads + the depth/fusion family's single head)
 DEFAULT_SKIP = ('cam_regressor', 'mat_regressor', 'regressor')
@@ -145,11 +147,12 @@ def _padding(conv, path):
 
 
 class QuantizedConv(nn.Module):
-    """One calibrated conv of the int8 forward: quantize the input with the
-    calibrated scale, the int8 conv (exact int32 sums; rounded to bf16
-    when acc_dtype is bf16, JAX's `acc_dtype`), dequantize, add the bias,
-    cast back to the input's dtype. The weight is quantized from the
-    float conv's weight here, once, and packed for the kernel."""
+    """One calibrated conv of the int8 forward, one call of
+    `quantized_conv`: quantize the input with the calibrated scale, the
+    int8 conv (exact int32 sums; rounded to bf16 when acc_dtype is bf16,
+    JAX's `acc_dtype`), dequantize, add the bias, cast back to the input's
+    dtype. The weight is quantized from the float conv's weight here,
+    once, and packed for the kernel."""
 
     def __init__(self, conv, absmax, path, acc_dtype=torch.int32):
         super().__init__()
@@ -171,14 +174,8 @@ class QuantizedConv(nn.Module):
                              else conv.bias.detach()[:, None, None])
 
     def forward(self, x):
-        xq = torch.clamp(torch.round(x.float() / self.x_scale), -127, 127)
-        y = int8_conv(xq.to(torch.int8), self.weight_packed, self.geom)
-        if self.acc_dtype == torch.bfloat16:
-            y = y.to(torch.bfloat16)
-        y = y.float() * self.scale
-        if self.bias is not None:
-            y = y + self.bias.float()
-        return y.to(x.dtype)
+        return quantized_conv(x, self.weight_packed, self.geom, self.x_scale,
+                              self.scale, self.bias, self.acc_dtype)
 
 
 def quantized_convs(model):

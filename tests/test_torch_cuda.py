@@ -2,8 +2,9 @@
 full-scanline-warp, partial-conv renorm, stem and int8 conv CUDA kernels
 against their plain PyTorch versions, their wrappers' checks and launch
 counts, the serving slice, a train step and a distillation step on the
-card against the same on the CPU, and a quantized Predictor's forward
-against its plain int8 route on the card.
+card against the same on the CPU, the fused quantized conv against its
+plain chain, and a quantized Predictor's forward against its plain int8
+route on the card.
 
 Every test here needs an NVIDIA GPU and skips without one. The file
 imports no JAX (the machine with the card has none), so it runs there on
@@ -1081,13 +1082,183 @@ def test_int8_wrapper_refuses_what_the_kernel_does_not_take(int8_dev):
     assert i8.int8_conv.launches == before
 
 
+def fused_args(dev, case, dtype, with_bias, seed):
+    """A float input (channels_last) and a QuantizedConv's operands for one
+    INT8_CASES conv: a seeded int8 weight, x_scale its calibrated 0-d f32
+    (absmax 0.8 of the input's, so some codes clip), per-channel weight
+    scales and their (Cout, 1, 1) products, a (Cout, 1, 1) bias in x's
+    dtype or None."""
+    from pose_tpu_torch.ops import int8_conv as i8
+    b, cin, h, cout, k, s, p, d = INT8_CASES[case]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = (2 * torch.randn((b, cin, h, h), generator=g, device=dev)).to(
+        dtype).contiguous(memory_format=torch.channels_last)
+    w = torch.randint(-127, 128, (cout, cin, k, k), generator=g,
+                      device=dev).to(torch.int8)
+    geom = i8.Geometry(cout, cin, (k, k), (s, s), (p, p), (d, d))
+    x_scale = torch.tensor(np.float32(0.8 * float(x.float().abs().max())
+                                      / 127.0), device=dev)
+    sw = torch.rand((cout,), generator=g, device=dev) * 1e-2 + 1e-4
+    scale = (x_scale * sw)[:, None, None]
+    bias = (torch.randn((cout, 1, 1), generator=g, device=dev).to(dtype)
+            if with_bias else None)
+    return x, (i8.pack_weight(w), geom, x_scale, scale, bias)
+
+
+def same_bits(a, b):
+    view = {2: torch.int16, 4: torch.int32}[a.element_size()]
+    return (a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.contiguous().view(view), b.contiguous().view(view)))
+
+
+@pytest.mark.parametrize('with_bias', [False, True], ids=['nobias', 'bias'])
+@pytest.mark.parametrize('acc', ['int32', 'bf16'])
+@pytest.mark.parametrize('dtype', ['bf16', 'f32'])
+@pytest.mark.parametrize('case', list(INT8_CASES))
+def test_quantized_conv_matches_plain(int8_dev, case, dtype, acc,
+                                      with_bias):
+    """quantized_conv (the quantize pass and the conv with its fused
+    epilogue) against quantized_conv_plain on the same card tensors: equal
+    bit for bit (the same IEEE division, round half to even, exact int32
+    sums, the same roundings in the dequant; no FMA), channels_last in
+    x's dtype, one launch of each kernel."""
+    from pose_tpu_torch.ops import int8_conv as i8
+    dt = torch.bfloat16 if dtype == 'bf16' else torch.float32
+    acc_dtype = torch.int32 if acc == 'int32' else torch.bfloat16
+    x, ops = fused_args(int8_dev, case, dt, with_bias, len(case))
+    before = (i8.quantized_conv.launches, i8.quantized_conv.quantize_launches)
+    got = i8.quantized_conv(x, *ops, acc_dtype)
+    ref = i8.quantized_conv_plain(x, *ops, acc_dtype)
+    torch.cuda.synchronize()
+    assert (i8.quantized_conv.launches,
+            i8.quantized_conv.quantize_launches) == tuple(
+                n + 1 for n in before)
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert same_bits(got, ref)
+
+
+@pytest.mark.parametrize('layout', ['nchw', 'sliced'])
+def test_quantized_conv_reads_any_strides(int8_dev, layout):
+    """The quantize pass reads x through its strides: an NCHW input and a
+    channel slice of a wider one give the plain chain's bits."""
+    from pose_tpu_torch.ops import int8_conv as i8
+    x, ops = fused_args(int8_dev, '3x3_s2', torch.bfloat16, True, 5)
+    if layout == 'nchw':
+        x = x.contiguous()
+    else:
+        x = torch.cat([x, x], 1).contiguous(
+            memory_format=torch.channels_last)[:, 3:3 + x.shape[1]]
+    got = i8.quantized_conv(x, *ops, torch.int32)
+    ref = i8.quantized_conv_plain(x, *ops, torch.int32)
+    torch.cuda.synchronize()
+    assert same_bits(got, ref)
+
+
+@pytest.mark.parametrize('dtype', ['bf16', 'f32'])
+def test_quantized_conv_split_k_at_layer4(int8_dev, dtype):
+    """The cam head's shape at batch 8 (17^2, K = 3 3 2048 = 18,432, 304
+    channels: fewer output tiles than SMs, so the planner splits K): the
+    split blocks' int32 partials add to the plain chain's bits, with
+    codes near +-127 so the sums pass 2^24 in magnitude, int32 and bf16
+    accumulators."""
+    from pose_tpu_torch.ops import int8_conv as i8
+    dt = torch.bfloat16 if dtype == 'bf16' else torch.float32
+    geom = i8.Geometry(304, 2048, (3, 3), (1, 1), (1, 1), (1, 1))
+    sms = torch.cuda.get_device_properties(int8_dev).multi_processor_count
+    assert i8.plan(8 * 17 * 17, 304, 18432, sms).split > 1
+    g = torch.Generator(device=int8_dev).manual_seed(11)
+    x = (100 + 27 * torch.rand((8, 2048, 17, 17), generator=g,
+                               device=int8_dev)).to(dt).contiguous(
+        memory_format=torch.channels_last)
+    w = torch.randint(100, 128, (304, 2048, 3, 3), generator=g,
+                      device=int8_dev).to(torch.int8)
+    x_scale = torch.tensor(1.0, device=int8_dev)
+    scale = torch.full((304, 1, 1), 1e-6, device=int8_dev)
+    for acc in (torch.int32, torch.bfloat16):
+        args = (i8.pack_weight(w), geom, x_scale, scale, None, acc)
+        got = i8.quantized_conv(x, *args)
+        ref = i8.quantized_conv_plain(x, *args)
+        torch.cuda.synchronize()
+        assert same_bits(got, ref)
+    exact = i8.int8_conv(x.to(torch.int8), i8.pack_weight(w), geom)
+    assert int(exact.min()) > 2 ** 24
+
+
+def test_quantized_conv_bf16_accumulator_rounds_twice(int8_dev):
+    """acc_dtype bf16 rounds each int32 sum as y.to(torch.bfloat16) does:
+    to f32, then to bf16. A sum of 2^24 + 2^16 + 1 rounds to 2^24 + 2^16
+    in f32 (ties to even), a bf16 tie, which goes to 2^24; rounded once it
+    would be 2^24 + 2^17. Its negative likewise."""
+    from pose_tpu_torch.ops import int8_conv as i8
+    cin = 1088
+    # 1044 x 127 x 127 + 127 x 32 + 13 x 1 = 2^24 + 2^16 + 1
+    codes = torch.zeros(cin)
+    codes[:1045] = 127
+    codes[1045] = 13
+    w = torch.zeros((2, cin, 1, 1), dtype=torch.int8)
+    w[:, :1044] = 127
+    w[:, 1044] = 32
+    w[:, 1045] = 1
+    w[1] = -w[1]
+    geom = i8.Geometry(2, cin, (1, 1), (1, 1), (0, 0), (1, 1))
+    x = codes.reshape(1, cin, 1, 1).to(int8_dev)
+    args = (i8.pack_weight(w).to(int8_dev), geom,
+            torch.tensor(1.0, device=int8_dev),
+            torch.ones((2, 1, 1), device=int8_dev), None, torch.bfloat16)
+    got = i8.quantized_conv(x, *args)
+    ref = i8.quantized_conv_plain(x, *args)
+    torch.cuda.synchronize()
+    assert same_bits(got, ref)
+    assert got.flatten().tolist() == [2.0 ** 24, -2.0 ** 24]
+
+
+def test_quantized_conv_under_inference_mode(int8_dev):
+    """Under torch.inference_mode() (the Predictor's), with the input
+    changed in place between two calls: each call reads the input as it
+    is then (nothing is cached by tensor version)."""
+    from pose_tpu_torch.ops import int8_conv as i8
+    x, ops = fused_args(int8_dev, '1x1_s2', torch.bfloat16, False, 7)
+    with torch.inference_mode():
+        x = x.clone()
+        first = i8.quantized_conv(x, *ops, torch.int32)
+        want = i8.quantized_conv_plain(x, *ops, torch.int32)
+        x.mul_(-0.5)
+        second = i8.quantized_conv(x, *ops, torch.int32)
+        want2 = i8.quantized_conv_plain(x, *ops, torch.int32)
+    torch.cuda.synchronize()
+    assert same_bits(first, want) and same_bits(second, want2)
+    assert not torch.equal(first, second)
+
+
+def test_quantized_conv_refuses_what_the_kernels_do_not_take(int8_dev):
+    from pose_tpu_torch.ops import int8_conv as i8
+    x, (packed, geom, xs, scale, bias) = fused_args(
+        int8_dev, '3x3_s2', torch.bfloat16, True, 9)
+    good = (x, packed, geom, xs, scale, bias, torch.int32)
+    bad = [(0, x.half()), (0, x.to(torch.int8)), (0, x[:, :64]),
+           (1, packed[:, :64]), (1, packed.cpu()), (3, xs.reshape(1)),
+           (3, xs.double()), (3, xs.cpu()), (4, scale[:64]),
+           (4, scale.double()), (5, bias.double()), (5, bias[:3]),
+           (6, torch.float16), (2, geom._replace(dilation=(0, 0)))]
+    before = (i8.quantized_conv.launches, i8.quantized_conv.quantize_launches)
+    for i, value in bad:
+        args = list(good)
+        args[i] = value
+        with pytest.raises(ValueError):
+            i8.quantized_conv(*args)
+    assert (i8.quantized_conv.launches,
+            i8.quantized_conv.quantize_launches) == before
+
+
 @pytest.mark.parametrize('half_acc', [False, True], ids=['f32', 'bf16'])
 def test_quantized_predictor_on_card_equals_plain_kernel_forward(
         int8_dev, half_acc, monkeypatch):
-    """A quantized Predictor's forward on the card launches the int8 kernel
-    at every quantized conv and no stem kernel, and equals the same forward
-    on the card with the plain int8 conv: the int32 sums are exact on both
-    routes, and everything else is the same operations."""
+    """A quantized Predictor's forward on the card makes one quantized_conv
+    call at every quantized conv (one quantize and one conv launch each,
+    the exact form and the stem kernel not at all), and equals the same
+    forward on the card with the plain chain (quantized_conv_plain): the
+    int32 sums are exact on both routes, and everything else is the same
+    operations in the same roundings."""
     from pose_tpu_torch import quant
     from pose_tpu_torch.ops import int8_conv as i8
     args = serve.default_args(model='resnet18', side_in=65, stride=32,
@@ -1098,13 +1269,14 @@ def test_quantized_predictor_on_card_equals_plain_kernel_forward(
     x = rng.randn(4, 65, 65, 4).astype(np.float32)
     p.quantize([x])
     n_q = len(quant.quantized_convs(p._quant_model))
-    before, stem_before = i8.int8_conv.launches, stem.stem_conv.launches
+    fused = i8.quantized_conv
+    before = (fused.launches, fused.quantize_launches, i8.int8_conv.launches,
+              stem.stem_conv.launches)
     got = p.predict_crops(x)
-    assert i8.int8_conv.launches == before + n_q
-    assert stem.stem_conv.launches == stem_before
-    monkeypatch.setattr(quant, 'int8_conv', lambda xq, wp, geom:
-                        i8.int8_conv_plain(xq, i8.unpack_weight(wp, geom),
-                                           geom))
+    assert (fused.launches, fused.quantize_launches, i8.int8_conv.launches,
+            stem.stem_conv.launches) == (before[0] + n_q, before[1] + n_q,
+                                         before[2], before[3])
+    monkeypatch.setattr(quant, 'quantized_conv', i8.quantized_conv_plain)
     ref = p.predict_crops(x)
     for k in ref:
         assert np.all(np.isfinite(got[k]))

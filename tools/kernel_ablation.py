@@ -1,10 +1,11 @@
-"""Where three kernels' time goes on an NVIDIA GPU: the split warp
-(pose_tpu_torch/csrc/split_warp.cu), the stem conv (csrc/stem_conv.cu) and
-the row-shared banded warp (csrc/banded_warp.cu), each beside variants of
-it with parts taken out, every one built with nvcc for sm_90a and timed
-alone with L2 flushed, beside a PyTorch call that moves the output's bytes.
+"""Where four kernels' time goes on an NVIDIA GPU: the split warp
+(pose_tpu_torch/csrc/split_warp.cu), the stem conv (csrc/stem_conv.cu), the
+row-shared banded warp (csrc/banded_warp.cu) and the int8 conv
+(csrc/int8_conv.cu), each beside variants of it with parts taken out,
+every one built with nvcc for sm_90a and timed alone with L2 flushed,
+beside a PyTorch call that moves the output's bytes.
 
-    python3 tools/kernel_ablation.py [split,stem,banded]
+    python3 tools/kernel_ablation.py [split,stem,banded,int8,int8_plans]
 
 A diagnostic, not kept in step with the kernels: it makes the variants by
 replacing text of the sources and stops with an error when a text it looks
@@ -40,6 +41,29 @@ admits), against a copy of the output:
 - const_maps, no_sharing_const_maps: full and no_sharing with the row and
   column maps replaced by unit-scale constants (no divisions), the taps as
   many.
+
+Int8 conv, the exact form (int32 out) at the five costliest convs of the
+quantized ResNet-50 at batch 8, the rgb stem and a layer1 3x3, each with
+the planner's plan, against zeroing the output:
+- full: the kernel;
+- no_a: the input tile's cp.async gathers gone (the producer's address
+  arithmetic, its barriers and the weight's TMA stay; the byte path of
+  Cin 1 and 3 keeps its loads);
+- no_b: the weight tile's TMA gone (its barrier arrival stays);
+- no_loads: both;
+- no_mma: the wgmma gone (the pipeline, the loads, the epilogue stay);
+- skeleton: no_loads and no_mma (barriers, split-K partials, epilogue);
+- no_epilogue: the consumers leave after the last stage (no partials, no
+  output);
+- bare: skeleton without the epilogue (the launch, the barriers, the
+  producer's row setup);
+- full_ and skeleton_ no_stores (the output's global stores gone),
+  no_split_sum (the split-K partials and the cluster barriers gone: every
+  split block stores the whole tile).
+
+int8_plans: the exact form under every plan the planner may pick (tile
+width x split) at the five costliest convs, each checked equal to the
+plain conv, beside the planner's pick.
 
 Builds go to pose_tpu_torch/_build/ablation/ (gitignored). Needs one card.
 """
@@ -137,6 +161,41 @@ def banded_variants():
             for name, text in (('full', src), ('no_sharing', no_sharing),
                                ('share_all', share_all),
                                *const_maps.items())}
+
+
+def int8_variants():
+    """{name: {file: text}} of the int8 conv's variants."""
+    src = _read('int8_conv.cu')
+    gather = 'cp_async<G>(dst + 2048 * i + G * j, src, ok ? G : 0);'
+    tma = ('mbar_arrive_tx(full, BN * BK);\n'
+           '        tma_load_2d(b_s + st * BN * BK, &wmap, k0, n0, full);')
+    mma = ('for (int kk = 0; kk < BK / 32; ++kk) mma<BN>(acc, da + 2 * kk, '
+           'db + 2 * kk);')
+    no_a = _replace(src, gather, '(void)src;', 'int8_conv.cu')
+    no_b = _replace(src, tma, 'mbar_arrive(full);', 'int8_conv.cu')
+    no_loads = _replace(no_a, tma, 'mbar_arrive(full);', 'int8_conv.cu')
+    no_mma = _replace(src, mma, '', 'int8_conv.cu')
+    skeleton = _replace(no_loads, mma, '', 'int8_conv.cu')
+    epilogue = 'const int rank = g.split > 1 ? (int)cluster_rank() : 0;'
+    leave = ('if (g.split > 1) { cluster_sync(); cluster_sync(); } '
+             'return;\n  const int rank = 0;')
+    no_epilogue = _replace(src, epilogue, leave, 'int8_conv.cu')
+    bare = _replace(skeleton, epilogue, leave, 'int8_conv.cu')
+    stores = 'if (row >= g.M || n >= g.Cout) return;'
+    split = 'if (g.split > 1) {'
+    variants = {'full': src, 'no_a': no_a, 'no_b': no_b,
+                'no_loads': no_loads, 'no_mma': no_mma, 'skeleton': skeleton,
+                'no_epilogue': no_epilogue, 'bare': bare}
+    for base in ('full', 'skeleton'):
+        text = variants[base]
+        variants[f'{base}_no_stores'] = _replace(text, stores, 'return;',
+                                                 'int8_conv.cu')
+        # every split block stores the tile; no cluster barriers
+        variants[f'{base}_no_split_sum'] = _replace(
+            _replace(text, split, 'if (false) {', 'int8_conv.cu'),
+            '(j >> 1) % g.split != rank', 'false', 'int8_conv.cu').replace(
+            '(jj >> 1) % g.split != rank', 'false')
+    return {name: {'int8_conv.cu': text} for name, text in variants.items()}
 
 
 def build(kernel, found, argtypes):
@@ -304,11 +363,100 @@ def banded_rows(dev, flush):
               f'written) {ms:.5f} ms (events)', flush=True)
 
 
+def int8_rows(dev, flush):
+    from pose_tpu_torch.ops import int8_conv as i8
+
+    libs = build('int8_conv', int8_variants(), [ctypes.c_void_p])
+    for lib in libs.values():
+        lib.error_string.argtypes = [ctypes.c_int]
+        lib.error_string.restype = ctypes.c_char_p
+    g = torch.Generator(device=dev).manual_seed(chip_smoke.SEED)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    # (Cin, H, Cout, kernel, stride, padding, dilation) at batch 8
+    for cin, h, cout, k, s, p, d in (
+            (2048, 17, 304, 3, 1, 1, 1), (512, 17, 512, 3, 1, 2, 2),
+            (512, 17, 512, 3, 1, 1, 1), (1024, 17, 2048, 1, 1, 0, 1),
+            (512, 17, 2048, 1, 1, 0, 1), (4, 257, 64, 7, 2, 3, 1),
+            (64, 65, 64, 3, 1, 1, 1)):
+        geom = i8.Geometry(cout, cin, (k, k), (s, s), (p, p), (d, d))
+        x = torch.randint(-127, 128, (8, cin, h, h), generator=g,
+                          device=dev).to(torch.int8).contiguous(
+            memory_format=torch.channels_last)
+        w = i8.pack_weight(torch.randint(-127, 128, (cout, cin, k, k),
+                                         generator=g, device=dev).to(
+            torch.int8))
+        oh, ow = geom.out_hw(h, h)
+        out = torch.empty((8, oh, ow, cout), dtype=torch.int32, device=dev)
+        plan = i8.plan(8 * oh * ow, cout, w.shape[1], sms)
+        label = (f'int8 8x{cin}x{h}^2 -> {cout} {k}x{k}/{s} d{d} (BN '
+                 f'{plan.bn}, split {plan.split})')
+        for name, lib in libs.items():
+            ms = chip_smoke.kernel_ms(
+                lambda: i8.launch(x, w, out, geom, plan, lib),
+                'int8_conv_kernel', 30, flush)
+            print(f'{label} {name}: {ms:.5f} ms (profiler records, L2 '
+                  'flushed)', flush=True)
+        ms = chip_smoke.time_ms(out.zero_, 30, flush)
+        print(f'{label}: zeroing the output ({out.numel() * 4} B written) '
+              f'{ms:.5f} ms (events)', flush=True)
+
+
+def int8_plan_rows(dev, flush):
+    """The int8 conv's exact form under every plan (tile width x split) at
+    the five costliest convs of the quantized ResNet-50 at batch 8, beside
+    the planner's pick: the data ops/int8_conv.py's STAGE_COST, BLOCK_COST
+    and REDUCE_COST are fitted to."""
+    from pose_tpu_torch.ops import int8_conv as i8
+
+    g = torch.Generator(device=dev).manual_seed(chip_smoke.SEED)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for cin, h, cout, k, s, p, d in (
+            (2048, 17, 304, 3, 1, 1, 1), (512, 17, 512, 3, 1, 2, 2),
+            (1024, 17, 2048, 1, 1, 0, 1), (512, 17, 2048, 1, 1, 0, 1),
+            (256, 17, 256, 3, 1, 1, 1)):
+        geom = i8.Geometry(cout, cin, (k, k), (s, s), (p, p), (d, d))
+        x = torch.randint(-127, 128, (8, cin, h, h), generator=g,
+                          device=dev).to(torch.int8).contiguous(
+            memory_format=torch.channels_last)
+        w8 = torch.randint(-127, 128, (cout, cin, k, k), generator=g,
+                           device=dev).to(torch.int8)
+        w = i8.pack_weight(w8)
+        oh, ow = geom.out_hw(h, h)
+        m, total = 8 * oh * ow, -(-w.shape[1] // i8.BK)
+        ref = i8.int8_conv_plain(x, w8, geom).permute(0, 2, 3, 1)
+        out = torch.empty((8, oh, ow, cout), dtype=torch.int32, device=dev)
+        times = []
+        for bn in i8.PLAN_NS:
+            if bn > 64 and 2 * cout <= bn:
+                continue
+            for split in range(1, min(total, i8.MAX_SPLIT) + 1):
+                if total % split or (split > 1 and total // split
+                                     < i8.MIN_SPLIT_STEPS):
+                    continue
+                plan = i8.make_plan(m, cout, w.shape[1], bn, split)
+                i8.launch(x, w, out, geom, plan)
+                torch.cuda.synchronize()
+                if not torch.equal(out, ref):
+                    raise RuntimeError(f'int8 plan {bn}/{split} differs from '
+                                       f'the plain conv at {geom}')
+                times.append((chip_smoke.kernel_ms(
+                    lambda: i8.launch(x, w, out, geom, plan),
+                    'int8_conv_kernel', 20, flush), bn, split))
+        times.sort()
+        pick = i8.plan(m, cout, w.shape[1], sms)
+        print(f'int8 plans 8x{cin}x{h}^2 -> {cout} {k}x{k} d{d}: planner '
+              f'BN {pick.bn} split {pick.split}; ' + ', '.join(
+                  f'{bn}/{split} {ms:.5f}' for ms, bn, split in times) +
+              ' ms (profiler records, L2 flushed; equal to the plain conv)',
+              flush=True)
+
+
 def main(argv):
     if not torch.cuda.is_available():
         print('kernel_ablation: needs an NVIDIA GPU', file=sys.stderr)
         return 1
-    rows = {'split': split_rows, 'stem': stem_rows, 'banded': banded_rows}
+    rows = {'split': split_rows, 'stem': stem_rows, 'banded': banded_rows,
+            'int8': int8_rows, 'int8_plans': int8_plan_rows}
     names = argv[0].split(',') if argv else list(rows)
     print(chip_smoke.card_line(), flush=True)
     dev = torch.device('cuda')
