@@ -3,6 +3,7 @@ GPU: the quickest proof that the port still starts on the card.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --only split,split_depth,stem,banded,int8
+    python3 chip_smoke.py --only resume,threads
 
 `--only` also runs from the root of an earlier checkout whose wrappers
 predate staged split tiles and the packed stem weight (no
@@ -131,6 +132,29 @@ Phases (any failure exits non-zero; no exception is swallowed):
      distilled student (-depth_net) on colour; the fusion teacher on
      colour and depth; a seeded -depth_only -partial_conv model; each run's
      first two samples again in f32 on the card and the CPU.
+ 13. resume phase (after the entry phases, on their stores and -pretrain
+     file; `--only resume` writes its own): the flagship step (ResNet-50,
+     bn_impl=pallas, batch 64) run twice from one saved state, with
+     cuDNN's deterministic algorithms off (the default) and on, whose
+     states must repeat bit for bit, and its ms; (a) the RGB CLI with
+     cmu_train.sh's flags and -save_state: an uninterrupted 2-epoch run,
+     and a run with -save_every 1 in a child process killed with SIGKILL
+     in epoch 2 (the joint+track step) once a snapshot of epoch 2 lands,
+     then -resume from its model_1.pth: model_2.pth, train_record.pth and
+     full_state/epoch_2.pt equal the uninterrupted run's bit for bit; ms
+     a step without and with -save_every 1, and ms a snapshot (the host
+     copy, the write); (c) the uninterrupted run's -trace_dir trace of
+     epoch 1: its split_warp and fused-BN kernel events equal those
+     kernels' launch counters; (b) DepthTrainer.distill_train at the
+     depth entry's configuration with -semi_teach, preempted after 2
+     steps and resumed: student state, teacher buffers, the semi
+     position and the record equal an uninterrupted epoch's bit for bit.
+     In the predict phase, (d): the host µs a QuantizedConv call takes to
+     enqueue, two threads serving one quantized Predictor (20 batches
+     each) equal to the serial answers with 53 + 53 launches a batch, and
+     two threads calling one QuantizedConv back to back (300 calls each)
+     equal to the serial answers (`--only threads` runs (d) alone, also
+     from an earlier checkout).
 The stem kernel's own phase (after the renorm pair's) holds it against its
 plain version at (64, Cin, 257, 257) for Cin 4, 3 and 1 and at the serving
 shape (8, 4, 257, 257).
@@ -3520,6 +3544,7 @@ def quant_phase(dev):
     for out in q:
         for k, v in out.items():
             check(np.all(np.isfinite(v)), f'quantized {k} not finite')
+    int8_threads(dev, predictor, scales, batches[2:])
 
     # every conv int8 on both (skip=()): the CPU runs no bf16 convolution
     cpu = serve.Predictor(args, 'rgb', predictor.model.state_dict(),
@@ -3757,16 +3782,539 @@ def predict_phase(dev, tmp_e, tmp_d):
     return rows, cli['stem_conv']
 
 
+# ------------------------------------------------------------ resume phase
+
+RESUME_STEPS = 3                   # steps a run of the determinism probe
+RESUME_SEMI_B = 16                 # ntu_train.sh's -semi_batch default
+
+
+class bn_pallas:
+    """POSE_TPU_BN=pallas (the fused-BN kernels) inside the block."""
+
+    def __enter__(self):
+        self.saved = os.environ.get('POSE_TPU_BN')
+        os.environ['POSE_TPU_BN'] = 'pallas'
+
+    def __exit__(self, *exc):
+        if self.saved is None:
+            os.environ.pop('POSE_TPU_BN')
+        else:
+            os.environ['POSE_TPU_BN'] = self.saved
+        return False
+
+
+def tree_diff(a, b, where=''):
+    """The paths at which two payloads (dicts, lists, tensors, numbers)
+    differ; tensors compared bit for bit."""
+    if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
+        ok = (isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor)
+              and same_bits(a, b))
+        return [] if ok else [where]
+    if isinstance(a, dict) and isinstance(b, dict):
+        if set(a) != set(b):
+            return [f'{where} keys {sorted(set(a) ^ set(b))}']
+        return [d for k in a for d in tree_diff(a[k], b[k], f'{where}/{k}')]
+    if isinstance(a, (list, tuple)) and isinstance(b, (list, tuple)):
+        if len(a) != len(b):
+            return [f'{where} length {len(a)} != {len(b)}']
+        return [d for i, (x, y) in enumerate(zip(a, b))
+                for d in tree_diff(x, y, f'{where}[{i}]')]
+    return [] if a == b and type(a) is type(b) else [f'{where}: {a} != {b}']
+
+
+def determinism_probe(dev):
+    """The flagship step (ResNet-50, bn_impl=pallas, batch 64) run twice
+    from one saved state, RESUME_STEPS steps each, with cuDNN's
+    deterministic algorithms off (PyTorch's default) and on: whether the
+    two runs' states are equal bit for bit, and ms a step (CUDA events).
+    Returns {deterministic: (equal, [ms])}."""
+    from pose_tpu_torch import serve
+    from pose_tpu_torch.models import build_model, init_weights
+    from pose_tpu_torch.train import (CMU_KEY_INDEX, default_train_args,
+                                      engine, state_io)
+
+    args = default_train_args(bn_impl='pallas', batch_size=TRAIN_B)
+    rng = np.random.RandomState(SEED + 31)
+    pre = serve.GatedPreprocessor(args.side_in, device=dev)
+    batches = TrainBatches(rng, RESUME_STEPS, pre, args)
+    model = init_weights(build_model(args),
+                         torch.Generator().manual_seed(SEED))
+    info = engine.JointInfo(None, None, None, CMU_KEY_INDEX)
+    trainer = engine.RgbTrainer(args, model, info, device=dev)
+    step = trainer._get_joint_step(True)
+    keys = ('image', 'true_cam', 'true_val', 'true_mat', 'intrinsics')
+    saved = state_io.host_train_state(trainer.state)
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    out = {}
+    try:
+        for det in (False, True):
+            torch.backends.cudnn.deterministic = det
+            torch.backends.cudnn.benchmark = False
+            states, ms = [], []
+            for _ in range(2):
+                trainer.load_state(saved)
+                for it in batches.items:
+                    batch = trainer._place(batches.batch(it), keys)
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    step(trainer.state, batch, 2e-5)
+                    end.record()
+                    end.synchronize()
+                    ms.append(start.elapsed_time(end))
+                states.append(state_io.host_train_state(trainer.state))
+            out[det] = (not tree_diff(*states), ms)
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = flags
+    for det, (equal, ms) in out.items():
+        print(f'resume: the flagship step from one saved state, twice '
+              f'{RESUME_STEPS} steps, cudnn.deterministic={det}: states '
+              f'{"equal" if equal else "DIFFERENT"} bit for bit; ms a step '
+              f'(CUDA events, the first of each run warm from the run '
+              f'before) {", ".join(f"{t:.2f}" for t in ms)}, median '
+              f'{np.median(ms):.2f}', flush=True)
+    # -save_state leaves cuDNN's defaults (no benchmark, deterministic
+    # off): a resume is bit-exact only while they repeat the step's bits
+    check(all(equal for equal, _ in out.values()), 'the flagship step '
+          'from one saved state does not repeat its bits')
+    return out
+
+
+def snapshot_line(log):
+    """ms per snapshot: the host copy (synchronous), the wait for the write
+    before, the write (the background thread)."""
+    def stat(key):
+        values = [e[key] for e in log if key in e]
+        return (f'{np.median(values):.1f} (' + ', '.join(
+            f'{v:.1f}' for v in values) + ')') if values else 'none'
+    return (f'{len(log)} snapshots, host copy ms {stat("copy_ms")}, wait '
+            f'for the write before ms {stat("wait_ms")}, write ms '
+            f'{stat("write_ms")}')
+
+
+def trace_kernel_counts(path, names):
+    """Kernel events of the Chrome trace at `path` whose names contain
+    each of `names`."""
+    with open(path) as file:
+        events = json.load(file)['traceEvents']
+    kernels = [e.get('name', '') for e in events if e.get('cat') == 'kernel']
+    annotations = [e.get('name', '') for e in events
+                   if e.get('cat') == 'user_annotation']
+    return ({n: sum(n in k for k in kernels) for n in names}, len(kernels),
+            annotations)
+
+
+# the kernels of an RGB train step as a trace names them, by wrapper
+TRACE_KERNELS = {'split_warp': 'split_warp_kernel',
+                 'fused_bn_stats': 'fbn_stats_partial_kernel',
+                 'fused_bn_apply': 'fbn_apply_kernel',
+                 'fused_bn_bwd_sums': 'fbn_bwd_partial_kernel',
+                 'fused_bn_dx': 'fbn_dx_kernel'}
+
+
+def resume_rgb(dev, tmp, meta, model_path):
+    """(a) The RGB CLI with cmu_train.sh's flags on the entry store: an
+    uninterrupted 2-epoch -save_state run with -trace_dir (its first epoch
+    traced; (c)); a -save_state -save_every 1 run in a child process,
+    killed with SIGKILL in epoch 2 once a snapshot of epoch 2 lands; then
+    -resume from its model_1.pth. The resumed run's model_2.pth,
+    train_record.pth and full_state/epoch_2.pt must equal the
+    uninterrupted run's bit for bit."""
+    import re
+    import signal
+
+    from pose_tpu_torch import main as cli
+    from pose_tpu_torch.ops import fused_bn_cuda, warp_cuda
+    from pose_tpu_torch.train import engine, state_io
+
+    save = os.path.join(tmp, 'resume')
+    trace_dir = os.path.join(tmp, 'trace')
+
+    def flags(suffix):
+        argv = cli_flags(meta, save, model_path)
+        argv[argv.index('smoke')] = suffix
+        return argv + ['-save_state']
+
+    kernels = {'split_warp': warp_cuda.split_warp, **fused_bn_cuda.KERNELS}
+    per_epoch = []
+    train = engine.RgbTrainer.train
+
+    def counted(self, epoch, batches):
+        for fn in kernels.values():
+            fn.launches = 0
+        out = train(self, epoch, batches)
+        per_epoch.append({k: fn.launches for k, fn in kernels.items()})
+        return out
+
+    engine.RgbTrainer.train = counted
+    try:
+        with bn_pallas():
+            t0 = time.perf_counter()
+            whole = cli.main(flags('whole') + ['-trace_dir', trace_dir])
+            torch.cuda.synchronize()
+            whole_s = time.perf_counter() - t0
+    finally:
+        engine.RgbTrainer.train = train
+    without = whole.train_loader.step_ms(1)
+
+    # the preempted run: a child process, killed once epoch 2's first
+    # snapshot is in place
+    model = flags('cut')[flags('cut').index('-model') + 1]
+    run_dir = os.path.join(save, f'{model}-cut')
+    mid = os.path.join(run_dir, state_io.SIDECAR, 'mid')
+    log_path = os.path.join(tmp, 'cut.log')
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, POSE_TPU_BN='pallas',
+               PYTHONPATH=os.pathsep.join(
+                   [root] + [p for p in [os.environ.get('PYTHONPATH')] if p]))
+    t0 = time.perf_counter()
+    with open(log_path, 'w') as log:
+        child = subprocess.Popen(
+            [sys.executable, '-m', 'pose_tpu_torch.main']
+            + flags('cut') + ['-save_every', '1'], cwd=root, env=env,
+            stdout=log, stderr=subprocess.STDOUT)
+        landed = None
+        try:
+            while child.poll() is None and landed is None:
+                names = os.listdir(mid) if os.path.isdir(mid) else []
+                ids = [int(n[:-3]) for n in names
+                       if re.fullmatch(r'\d+\.pt', n)]
+                epoch2 = [i for i in ids
+                          if i // state_io.MID_EPOCH_RADIX == 2]
+                if epoch2:
+                    landed = min(epoch2) % state_io.MID_EPOCH_RADIX
+                    child.send_signal(signal.SIGKILL)
+                else:
+                    time.sleep(0.02)
+        finally:
+            if child.poll() is None:
+                child.kill()
+            child.wait()
+    cut_s = time.perf_counter() - t0
+    with open(log_path) as file:
+        tail = file.read()[-3000:]
+    check(landed is not None and child.returncode == -signal.SIGKILL,
+          f'the child run ended with {child.returncode} before a snapshot '
+          f'of epoch 2 landed; its output ends:\n{tail}')
+    left = sorted(os.listdir(mid))
+    print(f'resume (a): the child run killed (SIGKILL) {cut_s:.2f} s after '
+          f'its start, once the snapshot before batch {landed} of epoch 2 '
+          f'landed; full_state/mid then held {left}', flush=True)
+
+    resume_argv = [a for a in flags('cut') if a != '-pretrain']
+    resume_argv[resume_argv.index('-model_path') + 1] = os.path.join(
+        run_dir, 'model_1.pth')
+    t0 = time.perf_counter()
+    with bn_pallas():
+        resumed = cli.main(resume_argv + ['-resume', '-save_every', '1'])
+        torch.cuda.synchronize()
+    resumed_s = time.perf_counter() - t0
+    with_every = resumed.train_loader.step_ms(0)
+
+    diffs = {}
+    for name in ('model_2.pth', 'train_record.pth',
+                 os.path.join(state_io.SIDECAR, 'epoch_2.pt')):
+        a, b = (torch.load(os.path.join(save, f'{model}-{s}', name),
+                           map_location='cpu', weights_only=True)
+                for s in ('whole', 'cut'))
+        diffs[name] = tree_diff(a, b)
+    print(f'resume (a): uninterrupted run {whole_s:.2f} s, resumed run '
+          f'{resumed_s:.2f} s from batch {landed}; differing entries {diffs}; records uninterrupted '
+          f'{whole.train[-1]} {whole.test[-1]}, resumed {resumed.train[-1]} '
+          f'{resumed.test[-1]}', flush=True)
+    print(f'resume (a): ms a train step of epoch 2 at batch {TRAIN_B} (CUDA '
+          f'events between batches; the host waits inside a step show): '
+          f'-save_state without -save_every {np.median(without):.2f} '
+          f'({", ".join(f"{t:.2f}" for t in without)}), with -save_every 1 '
+          f'after the resume {np.median(with_every):.2f} '
+          f'({", ".join(f"{t:.2f}" for t in with_every)}); '
+          f'{snapshot_line(resumed.trainer.snapshot_log)}', flush=True)
+    for name, d in diffs.items():
+        check(not d, f'resumed {name} differs from the uninterrupted run at '
+              f'{d[:8]}')
+    check(not os.path.exists(mid), 'the mid-epoch snapshots outlived the '
+          'recorded epoch')
+
+    # (c) the trace of the uninterrupted run's first epoch
+    check(len(whole.traces) == 1, f'{len(whole.traces)} traces written')
+    counts, n_kernels, notes = trace_kernel_counts(
+        whole.traces[0], list(TRACE_KERNELS.values()))
+    launches = per_epoch[0]
+    size = os.path.getsize(whole.traces[0]) / 2 ** 20
+    n_steps = notes.count('joint_train_step')
+    print(f'resume (c): -trace_dir wrote {os.path.basename(whole.traces[0])}'
+          f' ({size:.1f} MiB) for epoch 1: {n_kernels} kernel events, '
+          f'{n_steps} joint_train_step ranges; kernel events '
+          f'{counts}; launch counters {launches}', flush=True)
+    for wrapper, name in TRACE_KERNELS.items():
+        check(counts[name] == launches[wrapper] > 0, f'the trace holds '
+              f'{counts[name]} {name} events, the counter {launches[wrapper]}')
+    check(n_steps == ENTRY_TRAIN // TRAIN_B, f'{n_steps} step ranges')
+    return dict(snapshots=resumed.trainer.snapshot_log, without=without,
+                with_every=with_every)
+
+
+class Preempted(Exception):
+    pass
+
+
+class PreemptingLoader:
+    """The first `stop_after` batches of a loader, then Preempted; every
+    attribute read goes to the loader (the saver reads its epoch)."""
+
+    def __init__(self, inner, stop_after):
+        self.__dict__.update(_inner=inner, _stop_after=stop_after)
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+    def __len__(self):
+        return len(self._inner)
+
+    def __iter__(self):
+        for j, batch in enumerate(self._inner):
+            if j >= self._stop_after:
+                raise Preempted()
+            yield batch
+
+
+def resume_distill(dev, tmp, meta, model_path, stop_after=2):
+    """(b) DepthTrainer.distill_train at the depth entry's configuration
+    (ntu_train.sh's flags, -do_teach -do_fusion -attention) with
+    -semi_teach (a semi stream of batch 16 from the store's train split,
+    its own seed) and -save_state -save_every 1, over the NTU store's
+    DepthPoseLoader: one uninterrupted epoch; one preempted after
+    `stop_after` steps; one resumed from its snapshot. Student state,
+    teacher buffers, semi position and records must be equal bit for
+    bit."""
+    import copy
+
+    from pose_tpu_torch import opts
+    from pose_tpu_torch.data import joints, loader
+    from pose_tpu_torch.models import build_model, init_weights
+    from pose_tpu_torch.train import depth_engine, schedules, state_io
+
+    save = os.path.join(tmp, 'resume_distill')
+    info = joints.build_info('h36m')
+
+    def fresh(suffix):
+        args = opts.parse(depth_flags(meta, save, model_path, suffix, 1) + [
+            '-do_fusion', '-do_teach', '-attention', '-semi_teach',
+            '-semi_batch', str(RESUME_SEMI_B), '-save_state', '-save_every',
+            '1'])
+        student_args = copy.copy(args)
+        student_args.depth_only = False
+        student = init_weights(build_model(student_args, 'depth'),
+                               torch.Generator().manual_seed(SEED))
+        trainer = depth_engine.DepthTrainer(args, student, info, device=dev)
+        trainer.set_teacher(init_weights(
+            build_model(args, 'fusion'),
+            torch.Generator().manual_seed(SEED + 1)))
+        semi_args = copy.copy(args)
+        semi_args.batch_size = args.semi_batch
+        trainer.set_semi_loader(loader.DepthPoseLoader(
+            semi_args, 'train', info, seed=5, device=dev))
+        return args, trainer, loader.DepthPoseLoader(args, 'train', info,
+                                                     device=dev)
+
+    def outcome(trainer, record):
+        return dict(state=state_io.host_train_state(trainer.state),
+                    teacher=state_io.to_host(dict(
+                        trainer.teacher.named_buffers())),
+                    semi=trainer._get_semi_pos(), record=record)
+
+    with bn_pallas():
+        t0 = time.perf_counter()
+        args, trainer, batches = fresh('whole')
+        lr = schedules.depth_learn_rate(args, 1)
+        whole = outcome(trainer, trainer.distill_train(1, batches, lr))
+        del trainer, batches
+        args, trainer, batches = fresh('cut')
+        try:
+            trainer.distill_train(1, PreemptingLoader(batches, stop_after),
+                                  lr)
+            check(False, 'the preempted distillation epoch ran to its end')
+        except Preempted:
+            pass
+        cut_log = list(trainer.snapshot_log)
+        del trainer, batches
+        args, trainer, batches = fresh('cut')
+        trainer._mid_resume_pending = True
+        resumed = outcome(trainer, trainer.distill_train(1, batches, lr))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    diff = tree_diff(whole, resumed)
+    print(f'resume (b): distillation with -semi_teach at batch {TRAIN_B} '
+          f'(semi {RESUME_SEMI_B}): uninterrupted, preempted after '
+          f'{stop_after} steps, resumed: {wall:.2f} s in all; semi position '
+          f'{resumed["semi"]}; records {whole["record"]} | '
+          f'{resumed["record"]}; differing entries {diff[:8]}; the preempted '
+          f'run\'s {snapshot_line(cut_log)}', flush=True)
+    check(not diff, f'the resumed distillation differs at {diff[:8]}')
+    check(len(cut_log) == stop_after, f'{len(cut_log)} snapshots in '
+          f'{stop_after} steps')
+
+
+def qconv_host_us(shapes, n=200):
+    """Host µs a QuantizedConv call takes to enqueue, at each distinct conv
+    shape (its own input), n calls without a wait; their median."""
+    per = []
+    for x, _, mod in shapes.values():
+        with torch.inference_mode():
+            for _ in range(3):
+                mod(x)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                mod(x)
+            per.append((time.perf_counter() - t0) / n * 1e6)
+            torch.cuda.synchronize()
+    return float(np.median(per)), per
+
+
+def int8_conv_race(shapes, n_calls=300):
+    """Two threads calling one QuantizedConv (the conv with the largest
+    input) back to back, n_calls each, one on the input and one on the
+    input with its batch reversed: how many answers of each differ from
+    the serial ones. Calls that shared one quantized-input buffer would
+    read each other's codes."""
+    import threading
+
+    label, (x, _, mod) = max(shapes.items(),
+                             key=lambda kv: kv[1][0].numel())
+    inputs = [x, torch.flip(x, [0])]
+    with torch.inference_mode():
+        serial = [mod(t).clone() for t in inputs]
+    torch.cuda.synchronize()
+    bad = [None, None]
+
+    def loop(k):
+        with torch.inference_mode():
+            outs = [mod(inputs[k]) for _ in range(n_calls)]
+        torch.cuda.synchronize()
+        bad[k] = sum(not same_bits(o, serial[k]) for o in outs)
+
+    threads = [threading.Thread(target=loop, args=(k,)) for k in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return label, bad
+
+
+def int8_threads(dev, predictor, scales, batches, n_calls=20):
+    """(d) Two threads serving one quantized Predictor at once, n_calls
+    batches each on its own input, against the serial answers bit for bit,
+    with one conv and one quantize launch a quantized conv a batch; first
+    the host µs a QuantizedConv call takes to enqueue, last two threads on
+    one QuantizedConv in a tight loop (int8_conv_race)."""
+    import threading
+
+    from pose_tpu_torch import quant
+    from pose_tpu_torch.ops import int8_conv as i8
+
+    shapes = int8_shapes(predictor, scales, batches[0])
+    host_us, per = qconv_host_us(shapes)
+    print(f'int8 threads: a QuantizedConv call enqueues in {host_us:.1f} µs '
+          f'of host time (median over {len(per)} conv shapes at batch {B}, '
+          f'200 calls each; min {min(per):.1f}, max {max(per):.1f})',
+          flush=True)
+    n_q = len(quant.quantized_convs(predictor._quant_model))
+    inputs = batches[:2]
+    serial = [predictor.predict_crops(x) for x in inputs]
+    fused = i8.quantized_conv
+    fused.launches = fused.quantize_launches = 0
+    got, errors = [[], []], []
+
+    def serve_one(k):
+        try:
+            for _ in range(n_calls):
+                got[k].append(predictor.predict_crops(inputs[k]))
+        except BaseException as e:
+            errors.append(e)
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=serve_one, args=(k,))
+               for k in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    launches = (fused.launches, fused.quantize_launches)
+    bad = sum(any(not np.array_equal(out[name], serial[k][name])
+                  for name in out)
+              for k in range(2) for out in got[k])
+    print(f'int8 threads: 2 threads x {n_calls} batches of {B} in '
+          f'{wall:.2f} s; {bad} of {2 * n_calls} answers differ from the '
+          f'serial ones; conv and quantize launches {launches} (want '
+          f'{2 * n_calls * n_q} each)', flush=True)
+    check(not errors, f'a serving thread raised {errors}')
+    check(bad == 0, f'{bad} threaded answers differ from the serial ones')
+    check(launches == (2 * n_calls * n_q,) * 2, f'launches {launches}')
+    label, race = int8_conv_race(shapes)
+    print(f'int8 threads: 2 threads x 300 back-to-back calls of one '
+          f'QuantizedConv ({label}): {race} answers differ from the serial '
+          f'ones', flush=True)
+    check(race == [0, 0], f'{race} threaded QuantizedConv answers differ')
+    return host_us
+
+
+def resume_phase(dev, tmp, meta, model_path, ntu_meta):
+    """The resume phase: the determinism probe, (a) the RGB CLI killed and
+    resumed with (c) the trace of its uninterrupted twin, (b) the
+    distillation preempted and resumed."""
+    t0 = time.perf_counter()
+    probe = determinism_probe(dev)
+    rgb = resume_rgb(dev, tmp, meta, model_path)
+    resume_distill(dev, tmp, ntu_meta, model_path)
+    print(f'resume: phase {time.perf_counter() - t0:.2f} s', flush=True)
+    return probe, rgb
+
+
+def resume_only(dev):
+    """`--only resume,threads` parts: the resume phase on stores of its
+    own (the entry phases' stores, written the same way)."""
+    from pose_tpu_torch.data import synthetic
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        meta = synthetic.make_cmu_fixture(
+            os.path.join(tmp, 'store'), ENTRY_TRAIN, ENTRY_VALID, seed=SEED,
+            imshape=ENTRY_HD, workers=os.cpu_count() or 1)
+        ntu_meta = synthetic.make_ntu_fixture(
+            os.path.join(tmp, 'ntu'), ENTRY_TRAIN, ENTRY_VALID, seed=SEED,
+            imshape=ENTRY_HD, depth_imshape=KINECT_DEPTH,
+            workers=os.cpu_count() or 1, depth_scene=KINECT_RANGE_M)
+        model_path = os.path.join(tmp, 'resnet50.pth')
+        torchvision_state(model_path)
+        print(f'resume: stores written in {time.perf_counter() - t0:.1f} s',
+              flush=True)
+        resume_phase(dev, tmp, meta, model_path, ntu_meta)
+    return []
+
+
+def threads_only(dev):
+    """`--only threads`: the quantized Predictor's setup and (d)."""
+    predictor, batches, scales = quant_setup(dev)[:3]
+    int8_threads(dev, predictor, scales, batches[2:])
+    return []
+
+
 def main(argv):
     """No arguments: every phase. `--only
-    split,split_depth,stem,banded,int8` (any of them): the build and those
-    kernel phases, then their rows, and no result line."""
+    split,split_depth,stem,banded,int8,resume,threads` (any of them): the
+    build and those phases (`resume` on stores of its own), then the
+    kernel phases' rows, and no result line."""
     only = []
     if argv[:1] == ['--only'] and len(argv) == 2:
         only = argv[1].split(',')
     elif argv:
         print('usage: chip_smoke.py [--only '
-              'split,split_depth,stem,banded,int8]', file=sys.stderr)
+              'split,split_depth,stem,banded,int8,resume,threads]',
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; this script runs only on an '
@@ -3777,6 +4325,7 @@ def main(argv):
     from pose_tpu_torch.ops import (fused_bn_cuda, int8_conv, partial_conv,
                                     stem, warp_banded, warp_cuda)
 
+    t_start = time.perf_counter()
     dev = runtime.resolve_device('cuda')
     print(card_line(), flush=True)
     print(f'torch {torch.__version__} cuda {torch.version.cuda} '
@@ -3803,7 +4352,8 @@ def main(argv):
         phases = {'split': split_warp_phase, 'split_depth':
                   split_warp_depth_phase, 'stem': stem_phase,
                   'banded': lambda dev: list(banded_warp_phase(dev).values()),
-                  'int8': int8_only}
+                  'int8': int8_only, 'resume': resume_only,
+                  'threads': threads_only}
         rows = []
         for p in only:
             row = phases[p](dev)
@@ -3842,6 +4392,10 @@ def main(argv):
             tempfile.TemporaryDirectory() as tmp_d:
         entry = entry_phase(dev, tmp_e)
         depth_entry = depth_entry_phase(dev, tmp_d, pooled)
+        resume_phase(dev, tmp_e, os.path.join(tmp_e, 'store',
+                                              'metadata.json'),
+                     os.path.join(tmp_e, 'resnet50.pth'),
+                     os.path.join(tmp_d, 'ntu', 'metadata.json'))
         aug = augment_phase(dev, train_items, train_median)
         int8_rows, predict_stem = predict_phase(dev, tmp_e, tmp_d)
     # the split and stem kernels run on several paths: each path's count,
@@ -3873,6 +4427,8 @@ def main(argv):
           'point\'s test epochs')
     check(predict_stem > 0, 'stem_conv was not launched on the predict CLI')
 
+    print(f'chip_smoke: every phase in {time.perf_counter() - t_start:.1f} '
+          's', flush=True)
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

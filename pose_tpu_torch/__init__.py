@@ -44,7 +44,11 @@ Ported so far:
   `make_pku_fixture` write seeded stores) and `DepthTrainer.test`. Both
   loaders decode through the native C++ pool (`data.native_loader`, this
   package's own build of native/pose_loader.cc) where the host can build
-  it, and with PIL otherwise.
+  it, and with PIL otherwise;
+- the run's full state and the trace, in both entry points: `-save_state`
+  and `-save_every` (`train.state_io`, `train.engine.MidEpochSaver`, the
+  loaders' `start_batch` fast-forward; a resumed run equals the
+  uninterrupted one bit for bit) and `-trace_dir` (`utils.profiling`).
 
 Entry points run on `cuda` unless the caller passes `device='cpu'`; without
 a GPU and without an explicit device they raise (`runtime.resolve_device`).

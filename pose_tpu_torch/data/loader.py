@@ -155,6 +155,8 @@ class PoseLoader:
         self.shuffle = args.shuffle and (not self.at_test)
         self.seed = seed
         self.epoch = 0
+        # mid-epoch resume: the next iteration starts at this batch
+        self.start_batch = 0
         self.canvas = canvas or (512, 512)
         on_card = self.device.type == 'cuda'
         self.warp_impl = os.environ.get('POSE_TPU_WARP',
@@ -397,14 +399,18 @@ class PoseLoader:
     def __iter__(self):
         """One epoch of batches in the seeded order; -workers threads decode
         whole batches ahead, and a reorder buffer keeps the order
-        (loader.py:484-576)."""
+        (loader.py:484-576). `start_batch` fast-forwards once: batches
+        before it are never decoded, every later batch keeps its index in
+        the uninterrupted epoch, and so its draws (loader.py:495-496)."""
+        start = self.start_batch
+        self.start_batch = 0
         order = self._order()
         bs = self.batch_size
         batches = [order[i:i + bs] for i in range(0, len(order), bs)]
         n_workers = max(getattr(self.args, 'workers', 1), 1)
         decode_ms, events = [], []
         self.log.append(dict(decode_ms=decode_ms, events=events))
-        next_idx = [0]
+        next_idx = [start]
         ready = {}
         lock = threading.Lock()
         avail = threading.Condition(lock)
@@ -441,7 +447,7 @@ class PoseLoader:
         for t in threads:
             t.start()
         try:
-            for i_batch in range(len(batches)):
+            for i_batch in range(start, len(batches)):
                 with lock:
                     while i_batch not in ready:
                         avail.wait()

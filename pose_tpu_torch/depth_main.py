@@ -17,7 +17,9 @@ same metadata at -semi_batch), the `DepthTrainer` and the `Logger`; then
 trains -n_epochs epochs, each followed by a test epoch and a checkpoint.
 -val_only / -test_only reload `model_<n_epochs>.pth` (depth_main.py:47-56;
 the RGB CLI reloads best.pth) and run one test epoch; -resume continues
-from -model_path.
+from -model_path. -save_state, -save_every and -trace_dir work as in the
+RGB CLI (`main.run_epochs`); a distillation's full state also holds the
+teacher's BN buffers and the semi stream's position.
 
 Device: CUDA unless -n_cudas 0 (the CPU); `main(argv, device=...)` takes
 an explicit device (the tests pass 'cpu'). BatchNorm follows POSE_TPU_BN,
@@ -34,8 +36,9 @@ import torch
 
 from . import opts, runtime
 from .data import joints, loader
-from .main import check_ported
+from .main import check_ported, run_epochs, run_test
 from .models import build_model, convert, init_weights
+from .train import state_io
 from .train.depth_engine import DepthTrainer, load_metadata
 from .train.logger import Logger
 
@@ -144,6 +147,9 @@ def main(argv=None, device=None):
         semi_args.batch_size = args.semi_batch
         trainer.set_semi_loader(get_loader(semi_args)(
             semi_args, 'train', data_info, device=device))
+    if args.resume and not (args.test_only or args.val_only):
+        state = state_io.maybe_restore_sidecar(
+            trainer, args, state['epoch'], data_loader) or state
 
     logger = Logger(args, state)
     print('=> Logger is ready')
@@ -151,19 +157,15 @@ def main(argv=None, device=None):
 
     run = types.SimpleNamespace(args=args, trainer=trainer, logger=logger,
                                 train_loader=data_loader,
-                                test_loader=test_loader, train=[], test=[])
+                                test_loader=test_loader, train=[], test=[],
+                                traces=[])
     if args.test_only or args.val_only:
         print('=> Evaluation starts')
-        run.test.append(trainer.test(0, test_loader))
+        run_test(run, test_loader)
         logger.print_rec(run.test[-1])
         return run
     print('=> Train starts')
-    for epoch in range(logger.state['epoch'] + 1, args.n_epochs + 1):
-        run.train.append(trainer.train(epoch, data_loader))
-        run.test.append(trainer.test(epoch, test_loader))
-        logger.record(epoch, dict(run.train[-1]), run.test[-1],
-                      trainer.model)
-    logger.final_print()
+    run_epochs(run, data_loader, test_loader)
     return run
 
 

@@ -12,6 +12,14 @@ epoch and a checkpoint (`model_<E>.pth`, `best.pth`, `train_record.pth`
 under -save_record). -val_only / -test_only reload the best epoch's
 checkpoint and run one test epoch; -resume continues from -model_path.
 
+-save_state also writes the run's full state after each epoch
+(`train/state_io.py`: Adam's moments, the BN statistics, the loader's
+epoch) and `-resume -save_state` restores it, so the resumed run equals
+the uninterrupted one bit for bit; -save_every N adds a mid-epoch snapshot
+every N steps, from which `-resume` continues the interrupted epoch.
+-trace_dir writes a torch.profiler trace of the first trained epoch (of
+the test epoch under -val_only / -test_only).
+
 Device: CUDA unless -n_cudas 0 (the CPU); `main(argv, device=...)` takes
 an explicit device (the tests pass 'cpu'). BatchNorm follows POSE_TPU_BN
 ('pallas': the fused kernels; default 'xla'), as in JAX. Flags of parts
@@ -28,14 +36,13 @@ from . import opts, runtime
 from .data import joints
 from .data.loader import PoseLoader
 from .models import build_model, convert, init_weights
+from .train import state_io
 from .train.engine import RgbTrainer
 from .train.logger import Logger
+from .utils.profiling import cli_trace
 
 # flag -> (is it set, what is not ported, ROADMAP Queue 1 item)
 UNPORTED = (
-    ('save_every', lambda a: a.save_every, 'MidEpochSaver', 2),
-    ('save_state', lambda a: a.save_state, 'the full-state sidecar', 2),
-    ('trace_dir', lambda a: a.trace_dir, 'the profiler trace', 2),
     ('n_cudas', lambda a: a.n_cudas > 1, 'more than one device', 4),
     ('mesh_spatial', lambda a: a.mesh_spatial > 1, 'the spatial mesh', 4),
     ('dist_coord', lambda a: a.dist_coord, 'multi-host training', 4),
@@ -78,6 +85,36 @@ def create_variables(args, model):
     return state
 
 
+def run_epochs(run, data_loader, test_loader):
+    """The training loop of both CLIs (main.py:102-116): -resume -save_state
+    -save_every first looks for the interrupted epoch's snapshot; the first
+    trained epoch runs under -trace_dir's trace; after each epoch's record
+    the -save_state sidecar."""
+    args, trainer, logger = run.args, run.trainer, run.logger
+    start_epoch = logger.state['epoch'] + 1
+    if args.resume and args.save_state and args.save_every:
+        trainer._mid_resume_pending = True
+    for epoch in range(start_epoch, args.n_epochs + 1):
+        with cli_trace(args, capture=epoch == start_epoch) as traced:
+            run.train.append(trainer.train(epoch, data_loader))
+        if traced is not None:
+            run.traces.append(traced.path)
+        run.test.append(trainer.test(epoch, test_loader))
+        logger.record(epoch, dict(run.train[-1]), run.test[-1],
+                      trainer.model)
+        state_io.maybe_save_sidecar(trainer, args, epoch, data_loader,
+                                    logger)
+    logger.final_print()
+
+
+def run_test(run, test_loader):
+    """-val_only / -test_only: one test epoch, under -trace_dir's trace."""
+    with cli_trace(run.args) as traced:
+        run.test.append(run.trainer.test(0, test_loader))
+    if traced is not None:
+        run.traces.append(traced.path)
+
+
 def main(argv=None, device=None):
     """Run the CLI on `argv` (sys.argv[1:] by default). Returns the run:
     its trainer, logger, loaders and records."""
@@ -103,6 +140,9 @@ def main(argv=None, device=None):
 
     trainer = RgbTrainer(args, model, data_info, device=device)
     state = create_variables(args, trainer.model)
+    if args.resume and not (args.test_only or args.val_only):
+        state = state_io.maybe_restore_sidecar(
+            trainer, args, state['epoch'], data_loader) or state
     print('=> Model and criterion are ready')
 
     logger = Logger(args, state)
@@ -111,17 +151,13 @@ def main(argv=None, device=None):
 
     run = types.SimpleNamespace(args=args, trainer=trainer, logger=logger,
                                 train_loader=data_loader,
-                                test_loader=test_loader, train=[], test=[])
+                                test_loader=test_loader, train=[], test=[],
+                                traces=[])
     if args.test_only or args.val_only:
-        run.test.append(trainer.test(0, test_loader))
+        run_test(run, test_loader)
         return run
     print('=> Start training')
-    for epoch in range(logger.state['epoch'] + 1, args.n_epochs + 1):
-        run.train.append(trainer.train(epoch, data_loader))
-        run.test.append(trainer.test(epoch, test_loader))
-        logger.record(epoch, dict(run.train[-1]), run.test[-1],
-                      trainer.model)
-    logger.final_print()
+    run_epochs(run, data_loader, test_loader)
     return run
 
 

@@ -47,6 +47,7 @@ import array
 import contextlib
 import ctypes
 import functools
+import threading
 from typing import NamedTuple
 
 import torch
@@ -75,8 +76,10 @@ BLOCK_COST = 6.0
 REDUCE_COST = 0.5
 H100_SMS = 132
 MAX_GRID_YZ = 65535
-_scratch_bufs = {}
+_scratch = threading.local()
 _sms = {}
+# the launch counters are read-modify-writes that threads share
+_count_lock = threading.Lock()
 
 
 class Geometry(NamedTuple):
@@ -260,14 +263,18 @@ def _check(xq, w_packed, geom):
 
 def _buffer(dev, stream, nbytes):
     """The address of a scratch buffer of at least nbytes on dev for the
-    quantized input, kept for one stream: the calls on a stream run in
-    order, so each may reuse it."""
+    quantized input, kept for one stream of the calling thread: the calls
+    of a thread on a stream run in order, so each may reuse it, and no
+    other thread's call reads or frees it."""
+    bufs = getattr(_scratch, 'bufs', None)
+    if bufs is None:
+        bufs = _scratch.bufs = {}
     key = (dev, stream)
-    buf = _scratch_bufs.get(key)
+    buf = bufs.get(key)
     if buf is None or buf.numel() < nbytes:
         buf = torch.empty(max(nbytes, 1 << 20), dtype=torch.uint8,
                           device=dev)
-        _scratch_bufs[key] = buf
+        bufs[key] = buf
     return buf.data_ptr()
 
 
@@ -316,7 +323,8 @@ def int8_conv(xq, w_packed, geom):
                       device=xq.device)
     with _on(xq.device):
         launch(xq, w_packed, out, geom)
-    int8_conv.launches += 1
+    with _count_lock:
+        int8_conv.launches += 1
     return out.permute(0, 3, 1, 2)
 
 
@@ -380,8 +388,9 @@ def quantized_conv(x, w_packed, geom, x_scale, scale, bias, acc_dtype):
     with _on(x.device):
         err = build().quantized_conv_launch(args.buffer_info()[0])
     check_launch(_lib, err, 'quantized_conv')
-    quantized_conv.quantize_launches += 1
-    quantized_conv.launches += 1
+    with _count_lock:
+        quantized_conv.quantize_launches += 1
+        quantized_conv.launches += 1
     return out.permute(0, 3, 1, 2)
 
 

@@ -119,14 +119,17 @@ def build_parser():
                              'time instead of the two-pass matmul warp, the '
                              "card's default")
     parser.add_argument('-trace_dir', default=None,
-                        help='profiler trace of the first trained epoch; '
-                             'not ported yet')
+                        help='torch.profiler trace (Chrome JSON) of the '
+                             'first trained epoch, or of the test epoch '
+                             'under -val_only / -test_only')
     parser.add_argument('-save_state', action='store_true',
-                        help='also write an orbax full-train-state sidecar '
-                             'per epoch and restore it on -resume, making '
-                             'resume bit-exact incl. Adam moments and BN '
-                             'stats (the reference torch checkpoints only '
-                             'carry weights+epoch; beyond-reference extra)')
+                        help='also write the full train state (torch.save '
+                             'files under <save_path>/<model>-<suffix>/'
+                             'full_state) per epoch and restore it on '
+                             '-resume, making resume bit-exact incl. Adam '
+                             'moments, BN stats and the loader position '
+                             '(the reference torch checkpoints only carry '
+                             'weights+epoch; beyond-reference extra)')
     parser.add_argument('-save_every', default=0, type=int,
                         help='with -save_state: additionally write a '
                              'preemption-safe MID-epoch sidecar every N '

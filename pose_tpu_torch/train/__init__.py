@@ -1,6 +1,7 @@
 """The training path of the port (pose_tpu/train): losses, the schedules,
-the RGB steps (joint/cam train, eval) with the `RgbTrainer` epoch loop, and
-the depth steps (vanilla, fusion, distill, eval) with `DepthTrainer`.
+the RGB steps (joint/cam train, eval) with the `RgbTrainer` epoch loop,
+the depth steps (vanilla, fusion, distill, eval) with `DepthTrainer`, and
+the full-state checkpoints of a run (`state_io`).
 
 `default_train_args` is the flagship `cmu_train.sh` flag set and
 `default_depth_args` the `ntu_train.sh` one (both without -pretrain, whose

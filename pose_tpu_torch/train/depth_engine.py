@@ -20,8 +20,10 @@ under `last_path`.
 
 The dataset facts (`no_depth`, the metric `thresh`) come from the store's
 metadata.json when args names one, as in JAX (depth_engine.py:54-61), and
-from the constructor's arguments otherwise. Not ported yet (ROADMAP):
-`MidEpochSaver`, the device mesh.
+from the constructor's arguments otherwise. Every train mode runs a
+`MidEpochSaver`; a distillation continuation also carries the teacher's
+BN buffers and, under -semi_teach, the semi stream's position
+(`extra_state`). Not ported yet (ROADMAP): the device mesh.
 """
 
 import json
@@ -33,7 +35,8 @@ import torch
 from .. import metrics
 from ..models import convert
 from . import schedules, steps
-from .engine import BaseTrainer, LossMeter, _host, _overlap, back_rotate
+from .engine import (BaseTrainer, LossMeter, MidEpochSaver, _host,
+                     _overlap, back_rotate)
 
 
 def load_metadata(args):
@@ -105,13 +108,53 @@ class DepthTrainer(BaseTrainer):
     def set_semi_loader(self, loader):
         self.semi_loader = loader
         self.semi_worker = iter(loader)
+        self._semi_pulled = 0   # batches taken in the current cycle
 
     def _next_semi_batch(self):
         try:
-            return next(self.semi_worker)
+            batch = next(self.semi_worker)
         except StopIteration:
             self.semi_worker = iter(self.semi_loader)
-            return next(self.semi_worker)
+            self._semi_pulled = 0
+            batch = next(self.semi_worker)
+        self._semi_pulled += 1
+        return batch
+
+    # the semi stream's position is part of a continuation; a restore
+    # replays it through the loader's fast-forward (depth_engine.py:95-105)
+    def _get_semi_pos(self):
+        return dict(epoch=int(self.semi_loader.epoch),
+                    pulled=int(self._semi_pulled))
+
+    def _set_semi_pos(self, pos):
+        self.semi_loader.set_epoch(int(pos['epoch']))
+        self.semi_loader.start_batch = int(pos['pulled'])
+        self.semi_worker = iter(self.semi_loader)
+        self._semi_pulled = int(pos['pulled'])
+
+    def _get_teacher_buffers(self):
+        return dict(self.teacher.named_buffers())
+
+    def _set_teacher_buffers(self, saved):
+        buffers = dict(self.teacher.named_buffers())
+        if set(saved) != set(buffers):
+            raise ValueError('the saved teacher buffers are not this '
+                             "teacher's")
+        with torch.no_grad():
+            for name, value in saved.items():
+                buffers[name].copy_(value)
+
+    def extra_state(self):
+        """Under -do_teach the teacher's BN buffers (they drift at every
+        step without -do_freeze) and, with -semi_teach, the semi stream's
+        position."""
+        extra = {}
+        if self.args.do_teach and self.teacher is not None:
+            extra['teacher_buffers'] = (self._get_teacher_buffers,
+                                        self._set_teacher_buffers)
+        if self.args.semi_teach and self.semi_loader is not None:
+            extra['semi_pos'] = (self._get_semi_pos, self._set_semi_pos)
+        return extra
 
     def _step(self, mode):
         """The 'vanilla', 'fusion' or 'distill' step, made at first use."""
@@ -138,19 +181,24 @@ class DepthTrainer(BaseTrainer):
         n_batches = self._count(batches)
         freq = getattr(self.args, 'print_freq', 1)
         meter = LossMeter(('cam_loss',))
+        saver = MidEpochSaver(self, epoch, batches, {'train': meter})
 
         def dispatched():
-            for i, batch in enumerate(batches):
+            for i, batch in enumerate(batches, start=saver.offset):
                 device_batch, b = place(batch)
                 out = step(self.state, device_batch, lr)
                 meter.add(out, b)
+                saver.step_done(i)
                 yield i, out
 
-        for i, out in _overlap(dispatched()):
-            if freq and i % freq == 0:
-                print('| train Epoch[%d] [%d/%d]  Loss %1.4f'
-                      % (epoch, i, n_batches, float(out['cam_loss'])),
-                      flush=flush)
+        try:
+            for i, out in _overlap(dispatched()):
+                if freq and i % freq == 0:
+                    print('| train Epoch[%d] [%d/%d]  Loss %1.4f'
+                          % (epoch, i, n_batches, float(out['cam_loss'])),
+                          flush=flush)
+        finally:
+            saver.close()
         loss_avg = meter.mean('cam_loss')
         print('\n=> train Epoch[%d]  Cam Loss: %1.4f\n' % (epoch, loss_avg))
         return dict(cam_train_loss=loss_avg)
@@ -187,9 +235,11 @@ class DepthTrainer(BaseTrainer):
         cam_meter = LossMeter(('cam_loss',))
         dist_meter = LossMeter(('dist_loss',))
         keys = ('color', 'depth', 'true_cam', 'true_val', 'atten_map')
+        saver = MidEpochSaver(self, epoch, batches,
+                              {'cam': cam_meter, 'dist': dist_meter})
 
         def dispatched():
-            for i, batch in enumerate(batches):
+            for i, batch in enumerate(batches, start=saver.offset):
                 full_batch = self._size(batch, 'color')
                 device_batch = self._place(batch, keys)
                 if semi:
@@ -206,19 +256,24 @@ class DepthTrainer(BaseTrainer):
                 if semi:
                     dist_meter.add({'dist_loss': out['semi_loss']},
                                    semi_size)
+                saver.step_done(i)
                 yield i, out
 
-        for i, out in _overlap(dispatched()):
-            if freq and i % freq == 0:
-                message = '[=] train Epoch[{0}] Batch[{1}|{2}] '.format(
-                    epoch, i, n_batches)
-                message += ' Cam Loss {:.4f} '.format(float(out['cam_loss']))
-                message += ' Dist Loss {:.4f} '.format(
-                    float(out['dist_loss']))
-                if semi:
-                    message += ' Semi Loss {:.4f}'.format(
-                        float(out['semi_loss']))
-                print(message)
+        try:
+            for i, out in _overlap(dispatched()):
+                if freq and i % freq == 0:
+                    message = '[=] train Epoch[{0}] Batch[{1}|{2}] '.format(
+                        epoch, i, n_batches)
+                    message += ' Cam Loss {:.4f} '.format(
+                        float(out['cam_loss']))
+                    message += ' Dist Loss {:.4f} '.format(
+                        float(out['dist_loss']))
+                    if semi:
+                        message += ' Semi Loss {:.4f}'.format(
+                            float(out['semi_loss']))
+                    print(message)
+        finally:
+            saver.close()
         cam_loss = cam_meter.mean('cam_loss')
         dist_loss = dist_meter.mean('dist_loss')
         print('\n=> train Epoch[%d]  Cam Loss: %1.4f  Dist Loss: %1.4f\n\n'

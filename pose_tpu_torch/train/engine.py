@@ -11,16 +11,19 @@ the step's keys only; `_true_size` is the count of real rows of a batch,
 and the test epochs weight losses and metrics by it and slice every
 per-row output to it, as JAX does (engine.py:443-474).
 
-Not ported yet (ROADMAP): the device mesh and `_shard` (one card here) and
-`MidEpochSaver`.
+`MidEpochSaver` writes mid-epoch snapshots under `-save_state -save_every
+N` (`state_io`). Not ported yet (ROADMAP): the device mesh and `_shard`
+(one card here).
 """
+
+import time
 
 import numpy as np
 import torch
 
 from .. import metrics, runtime
 from ..ops import recon
-from . import schedules, steps
+from . import schedules, state_io, steps
 
 
 class JointInfo:
@@ -82,6 +85,101 @@ class LossMeter:
         return float(self.sums[key]) / max(self.total, 1)
 
 
+class MidEpochSaver:
+    """Mid-epoch snapshots (`-save_state -save_every N`; engine.py:88-186).
+
+    Every N train steps the epoch's continuation goes into the mid-epoch
+    sidecar (`state_io`): the TrainState, the trainer's `extra_state()`
+    (the distillation teacher's BN buffers, the semi stream's position),
+    the loss meters' sums, the loader's epoch counter and the next
+    batch. The loaders draw every random number from
+    (seed, epoch, batch index), so a restored run replays the rest of the
+    epoch bit for bit; the skipped batches are never decoded
+    (`loader.start_batch`). The copy to the host is synchronous (the steps
+    update the state in place); one background thread writes the file, and
+    `close()` waits for it and raises its error. A loader without
+    `start_batch` disables the saver with a console note. Each snapshot's
+    `copy_ms`, `wait_ms` and `write_ms` go to `trainer.snapshot_log`."""
+
+    def __init__(self, trainer, epoch, data_loader, meters):
+        self.trainer = trainer
+        self.args = trainer.args
+        self.epoch = epoch
+        self.loader = data_loader
+        self.meters = meters
+        self.extra = trainer.extra_state()
+        every = int(getattr(self.args, 'save_every', 0) or 0)
+        enabled = every > 0 and getattr(self.args, 'save_state', False)
+        if enabled and not hasattr(data_loader, 'start_batch'):
+            print('=> -save_every: %s cannot fast-forward (no start_batch) '
+                  '— mid-epoch checkpointing disabled for this run'
+                  % type(data_loader).__name__)
+            enabled = False
+        self.every = every if enabled else 0
+        self.offset = 0
+        self._writer = None
+        if self.every and trainer._mid_resume_pending:
+            trainer._mid_resume_pending = False
+            self.offset = self._try_restore()
+
+    def _geometry(self):
+        return dict(n_batches=len(self.loader),
+                    batch_size=self.loader.batch_size, seed=self.loader.seed)
+
+    def _payload(self):
+        """The continuation as host tensors."""
+        return dict(
+            state=state_io.host_train_state(self.trainer.state),
+            extra=state_io.extra_payload(self.extra),
+            meters=state_io.to_host({name: dict(sums=m.sums, total=m.total)
+                                     for name, m in self.meters.items()}),
+            loader_epoch=int(self.loader.epoch), geometry=self._geometry())
+
+    def _try_restore(self):
+        res = state_io.restore_mid_epoch(self.args, self.epoch,
+                                         self._geometry())
+        if res is None:
+            return 0
+        payload, next_batch = res
+        self.trainer.load_state(payload['state'])
+        device = self.trainer.device
+        for name, m in self.meters.items():
+            saved = payload['meters'][name]
+            m.sums = {k: None if v is None else v.to(device)
+                      for k, v in saved['sums'].items()}
+            m.total = saved['total']
+        for name, (_, set_) in self.extra.items():
+            set_(payload['extra'][name])
+        self.loader.set_epoch(payload['loader_epoch'])
+        self.loader.start_batch = next_batch
+        print('=> Resuming epoch %d from batch %d (mid-epoch sidecar)'
+              % (self.epoch, next_batch))
+        return next_batch
+
+    def step_done(self, i_batch):
+        """Call after train step `i_batch` and its meter update: every N
+        steps, copy the continuation to the host and hand it to the
+        writer."""
+        if self.every and (i_batch + 1) % self.every == 0:
+            t0 = time.perf_counter()
+            payload = self._payload()
+            copy_ms = (time.perf_counter() - t0) * 1e3
+            if self._writer is None:
+                self._writer = state_io.MidEpochWriter(
+                    state_io.mid_epoch_dir(self.args))
+            entry = self._writer.save(payload, state_io.mid_epoch_id(
+                self.epoch, i_batch + 1))
+            entry['copy_ms'] = copy_ms
+            self.trainer.snapshot_log.append(entry)
+
+    def close(self):
+        """Wait for the last write and raise its error; call at epoch end,
+        on the exception path too."""
+        if self._writer is not None:
+            writer, self._writer = self._writer, None
+            writer.close()
+
+
 class BaseTrainer:
     """What the engines share (engine.py BaseTrainer): the model on its
     device (cuda unless given) in channels_last, its TrainState, and the
@@ -93,10 +191,23 @@ class BaseTrainer:
         self.device = runtime.resolve_device(device)
         model.to(self.device, memory_format=torch.channels_last)
         self.state = steps.init_state(model, args)
+        # set by the entry points on -resume -save_state -save_every; the
+        # first epoch's MidEpochSaver consumes it
+        self._mid_resume_pending = False
+        self.snapshot_log = []
 
     @property
     def model(self):
         return self.state.model
+
+    def load_state(self, saved):
+        """Copy a `state_io.host_train_state` into the TrainState."""
+        state_io.load_train_state(self.state, saved)
+
+    def extra_state(self):
+        """name -> (getter, setter) of what else a continuation needs
+        beside the TrainState; none here."""
+        return {}
 
     def _place(self, batch, keys):
         """The device-bound keys of a batch, on the trainer's device."""
@@ -146,19 +257,24 @@ class RgbTrainer(BaseTrainer):
         n_batches = self._count(batches)
         freq = getattr(self.args, 'print_freq', 1)
         meter = LossMeter(('cam_loss',))
+        saver = MidEpochSaver(self, epoch, batches, {'train': meter})
 
         def dispatched():
-            for i, batch in enumerate(batches):
+            for i, batch in enumerate(batches, start=saver.offset):
                 b = self._size(batch, 'image')
                 out = step(self.state, self._place(
                     batch, ('image', 'true_cam', 'true_val')), lr)
                 meter.add(out, b)
+                saver.step_done(i)
                 yield i, out
 
-        for i, out in _overlap(dispatched()):
-            if freq and i % freq == 0:
-                print('| train Epoch[%d] [%d/%d]  Loss %1.4f'
-                      % (epoch, i, n_batches, float(out['cam_loss'])))
+        try:
+            for i, out in _overlap(dispatched()):
+                if freq and i % freq == 0:
+                    print('| train Epoch[%d] [%d/%d]  Loss %1.4f'
+                          % (epoch, i, n_batches, float(out['cam_loss'])))
+        finally:
+            saver.close()
         loss_avg = meter.mean('cam_loss')
         print('\n=> train Epoch[%d]  Cam Loss: %1.4f\n' % (epoch, loss_avg))
         return dict(cam_train_loss=loss_avg)
@@ -169,25 +285,31 @@ class RgbTrainer(BaseTrainer):
         n_batches = self._count(batches)
         freq = getattr(self.args, 'print_freq', 1)
         meter = LossMeter(('cam_loss', 'mat_loss', 'recon_loss'))
+        saver = MidEpochSaver(self, epoch, batches, {'train': meter})
 
         def dispatched():
-            for i, batch in enumerate(batches):
+            for i, batch in enumerate(batches, start=saver.offset):
                 b = self._size(batch, 'image')
                 out = step(self.state, self._place(
                     batch, ('image', 'true_cam', 'true_val', 'true_mat',
                             'intrinsics')), lr)
                 meter.add(out, b)
+                saver.step_done(i)
                 yield i, out
 
-        for i, out in _overlap(dispatched()):
-            if freq and i % freq == 0:
-                message = '| train Epoch[%d] [%d/%d]' % (epoch, i, n_batches)
-                message += '  Cam Loss: %1.4f' % float(out['cam_loss'])
-                message += '  Mat Loss: %1.4f' % float(out['mat_loss'])
-                if do_track:
-                    message += ('  Recon Loss: %1.4f'
-                                % float(out['recon_loss']))
-                print(message)
+        try:
+            for i, out in _overlap(dispatched()):
+                if freq and i % freq == 0:
+                    message = ('| train Epoch[%d] [%d/%d]'
+                               % (epoch, i, n_batches))
+                    message += '  Cam Loss: %1.4f' % float(out['cam_loss'])
+                    message += '  Mat Loss: %1.4f' % float(out['mat_loss'])
+                    if do_track:
+                        message += ('  Recon Loss: %1.4f'
+                                    % float(out['recon_loss']))
+                    print(message)
+        finally:
+            saver.close()
         cam_avg = meter.mean('cam_loss')
         mat_avg = meter.mean('mat_loss')
         recon_avg = meter.mean('recon_loss')

@@ -18,13 +18,17 @@ dict, as device tensors; nothing in a step waits for the card.
   clip_by_global_norm (g * max_norm / |g| where |g| >= max_norm, no
   epsilon), then weight decay added to the gradient, then Adam (b1 0.9,
   b2 0.999, eps 1e-8, bias-corrected), then params -= lr * update.
+- Each train step is a named range of a profiler trace
+  (`<kind>_train_step`, with `backward` and `optimizer` inside).
 """
 
+import functools
 from dataclasses import dataclass
 
 import torch
 
 from ..ops import heatmap, recon
+from ..utils.profiling import annotate
 from . import losses
 
 
@@ -138,9 +142,20 @@ def decode_spec_cam(cam_feat, depth, num_joints, depth_range, key_index,
 def _update(state, loss, lr):
     for p in state.tx.params:
         p.grad = None
-    loss.backward()
-    state.tx.step(lr)
+    with annotate('backward'):
+        loss.backward()
+    with annotate('optimizer'):
+        state.tx.step(lr)
     state.step += 1
+
+
+def _named(name, step):
+    """`step` as one named range of a profiler trace."""
+    @functools.wraps(step)
+    def named(*args, **kwargs):
+        with annotate(name):
+            return step(*args, **kwargs)
+    return named
 
 
 def make_cam_train_step(args, key_index):
@@ -159,7 +174,7 @@ def make_cam_train_step(args, key_index):
         _update(state, loss, lr)
         return {'cam_loss': loss.detach()}
 
-    return step
+    return _named('cam_train_step', step)
 
 
 def make_joint_train_step(args, key_index, do_track):
@@ -193,7 +208,7 @@ def make_joint_train_step(args, key_index, do_track):
         return {'cam_loss': cam_loss.detach(), 'mat_loss': mat_loss.detach(),
                 'recon_loss': recon_loss.detach()}
 
-    return step
+    return _named('joint_train_step', step)
 
 
 def make_rgb_eval_step(args, key_index):
@@ -246,7 +261,7 @@ def _decode_loss(args, key_index, criterion, cam_feat, batch):
                                         batch['true_val'], args.loss_div)
 
 
-def _cam_only_step(args, key_index, keys):
+def _cam_only_step(args, key_index, keys, name):
     """A step whose model reads the batch's `keys` (NHWC images) and
     returns (cam_feat, tap); the loss is the depth engine's cam loss."""
     criterion = losses.get_criterion(args.criterion)
@@ -259,19 +274,21 @@ def _cam_only_step(args, key_index, keys):
         _update(state, loss, lr)
         return {'cam_loss': loss.detach()}
 
-    return step
+    return _named(name, step)
 
 
 def make_vanilla_train_step(args, key_index):
     """vanilla_train (steps.py:261-287): one modality, the batch's
     'in_image'. step(state, batch, lr) -> {'cam_loss'}."""
-    return _cam_only_step(args, key_index, ('in_image',))
+    return _cam_only_step(args, key_index, ('in_image',),
+                          'vanilla_train_step')
 
 
 def make_fusion_train_step(args, key_index):
     """fusion_train (steps.py:290-316): model(color, depth).
     step(state, batch, lr) -> {'cam_loss'}."""
-    return _cam_only_step(args, key_index, ('color', 'depth'))
+    return _cam_only_step(args, key_index, ('color', 'depth'),
+                          'fusion_train_step')
 
 
 def distill_loss(args, teach_last, last_feat, atten_map):
@@ -351,7 +368,7 @@ def make_distill_train_step(args, key_index, teacher_is_fusion, with_semi):
         return {'cam_loss': c_loss.detach(), 'dist_loss': d_loss.detach(),
                 'semi_loss': s_loss.detach()}
 
-    return step
+    return _named('distill_train_step', step)
 
 
 def make_depth_eval_step(args, key_index, fusion):

@@ -1281,3 +1281,50 @@ def test_quantized_predictor_on_card_equals_plain_kernel_forward(
     for k in ref:
         assert np.all(np.isfinite(got[k]))
         np.testing.assert_array_equal(got[k], ref[k])
+
+
+def test_quantized_predictor_two_threads_equal_serial(int8_dev):
+    """Two threads serving one quantized Predictor at once on the default
+    stream: each call quantizes into memory of its own, so every answer
+    equals the serial one bit for bit, and every batch makes one conv and
+    one quantize launch at each quantized conv."""
+    import threading
+
+    from pose_tpu_torch import quant
+    from pose_tpu_torch.ops import int8_conv as i8
+    args = serve.default_args(model='resnet18', side_in=65, stride=32,
+                              depth=4, num_joints=5, half_acc=True,
+                              extra_channel=True)
+    p = serve.Predictor(args, 'rgb', batch_size=4, device=int8_dev, seed=5)
+    rng = np.random.RandomState(5)
+    xs = [rng.randn(4, 65, 65, 4).astype(np.float32) for _ in range(2)]
+    p.quantize(xs)
+    n_q = len(quant.quantized_convs(p._quant_model))
+    serial = [p.predict_crops(x) for x in xs]
+    fused = i8.quantized_conv
+    before = (fused.launches, fused.quantize_launches)
+    got = [[], []]
+    errors = []
+    n_calls = 20
+
+    def serve_one(k):
+        try:
+            for _ in range(n_calls):
+                got[k].append(p.predict_crops(xs[k]))
+        except BaseException as e:
+            errors.append(e)
+
+    threads = [threading.Thread(target=serve_one, args=(k,))
+               for k in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors
+    assert (fused.launches - before[0], fused.quantize_launches
+            - before[1]) == (2 * n_calls * n_q, 2 * n_calls * n_q)
+    for k in range(2):
+        assert len(got[k]) == n_calls
+        for out in got[k]:
+            for name in serial[k]:
+                np.testing.assert_array_equal(out[name], serial[k][name])

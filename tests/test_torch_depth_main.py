@@ -18,6 +18,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+import opts as root_opts
 from pose_tpu.data import synthetic as jsynthetic
 from pose_tpu.models import PoseResNet as JaxPoseResNet
 from pose_tpu.models import convert as jconvert
@@ -25,8 +26,9 @@ from pose_tpu.train import JointInfo as JaxJointInfo
 from pose_tpu.train import steps as jax_steps
 from pose_tpu.train.depth_engine import DepthTrainer as JaxDepthTrainer
 
-from pose_tpu_torch import depth_main
+from pose_tpu_torch import depth_main, opts
 from pose_tpu_torch.data import loader
+from pose_tpu_torch.main import check_ported
 from pose_tpu_torch.models import PoseResNet
 from pose_tpu_torch.models.convert import state_dict_from_jax
 from pose_tpu_torch.train import default_depth_args, depth_engine, engine
@@ -385,14 +387,27 @@ def test_cli_semi_teach(ntu, tmp_path, capsys):
     assert np.isfinite(run.train[0]['dist_train_loss'])
 
 
-@pytest.mark.parametrize('flag', ['-save_every 5', '-save_state',
-                                  '-trace_dir t', '-n_cudas 2',
-                                  '-mesh_spatial 2', '-dist_coord h:1'])
+@pytest.mark.parametrize('flag', ['-n_cudas 2', '-mesh_spatial 2',
+                                  '-dist_coord h:1'])
 def test_unported_flags_raise(flag):
     with pytest.raises(NotImplementedError, match='ROADMAP Queue 1 item'):
         depth_main.main(['-model', 'resnet18', '-suffix', 's', '-data_name',
                          'ntu', '-save_path', 'p', '-criterion', 'SmoothL1',
                          '-n_cudas', '1'] + flag.split())
+
+
+@pytest.mark.parametrize('flag', ['-save_every 5', '-save_state',
+                                  '-trace_dir t'])
+def test_ported_flags_pass_and_parse_as_the_root_parser(flag):
+    """depth_main's -save_every, -save_state and -trace_dir pass
+    check_ported and parse to the root parser's namespace (ntu_train.sh's
+    flags)."""
+    argv = ['-model', 'resnet18', '-suffix', 's', '-data_name', 'ntu',
+            '-save_path', 'p', '-criterion', 'SmoothL1', '-n_cudas', '1',
+            '-do_fusion', '-half_acc'] + flag.split()
+    args = opts.parse(argv)
+    check_ported(args)
+    assert vars(args) == vars(root_opts.parse(argv))
 
 
 @pytest.mark.parametrize('flags', [('-resume', '-pretrain'),

@@ -333,15 +333,27 @@ def test_opts_parse_as_the_root_parser():
     assert vars(opts.parse(argv)) == vars(root_opts.parse(argv))
 
 
-@pytest.mark.parametrize('flag', ['-save_every 5', '-save_state',
-                                  '-trace_dir t', '-n_cudas 2',
-                                  '-mesh_spatial 2', '-dist_coord h:1'])
+@pytest.mark.parametrize('flag', ['-n_cudas 2', '-mesh_spatial 2',
+                                  '-dist_coord h:1'])
 def test_unported_flags_raise(flag):
     args = opts.parse(['-model', 'resnet18', '-suffix', 's', '-data_name',
                        'cmu', '-save_path', 'p', '-criterion', 'SmoothL1',
                        '-n_cudas', '1'] + flag.split())
     with pytest.raises(NotImplementedError, match='ROADMAP Queue 1 item'):
         cli.check_ported(args)
+
+
+@pytest.mark.parametrize('flag', ['-save_every 5', '-save_state',
+                                  '-trace_dir t'])
+def test_ported_flags_pass_and_parse_as_the_root_parser(flag):
+    """-save_every, -save_state and -trace_dir are ported: check_ported
+    lets them through, and they parse to the root parser's namespace."""
+    argv = ['-model', 'resnet18', '-suffix', 's', '-data_name', 'cmu',
+            '-save_path', 'p', '-criterion', 'SmoothL1', '-n_cudas',
+            '1'] + flag.split()
+    args = opts.parse(argv)
+    cli.check_ported(args)
+    assert vars(args) == vars(root_opts.parse(argv))
 
 
 def test_main_needs_a_device(monkeypatch):
