@@ -4,6 +4,7 @@ GPU: the quickest proof that the port still starts on the card.
     python3 chip_smoke.py
     python3 chip_smoke.py --only split,split_depth,stem,banded,int8
     python3 chip_smoke.py --only resume,threads
+    python3 chip_smoke.py --only export
 
 `--only` also runs from the root of an earlier checkout whose wrappers
 predate staged split tiles and the packed stem weight (no
@@ -47,7 +48,8 @@ Phases (any failure exits non-zero; no exception is swallowed):
      on the card against the CPU;
   5. serve phase, a main path: 64 full frames -> gated split warp ->
      BatchingServer on the full-width ResNet-50 half_acc Predictor (random
-     weights from a seed), 64 single-crop requests in 8 batches, each
+     weights from a seed; the worker's aot_compile captures its forward in
+     a CUDA graph), 64 single-crop requests in 8 batches, each
      answer checked against predict_crops on the same crops,
      predict_absolute on one batch; the first batch's time is reported
      apart from the median of the others;
@@ -155,6 +157,20 @@ Phases (any failure exits non-zero; no exception is swallowed):
      two threads calling one QuantizedConv back to back (300 calls each)
      equal to the serial answers (`--only threads` runs (d) alone, also
      from an earlier checkout).
+ 14. export phase (last; `--only export` runs it alone), the deployment
+     slice's main path: the full-width bf16 and int8 rgb Predictors (batch
+     8, the int8 one calibrated on 2 batches) each exported to a .pt2
+     (torch.export, the stem and int8 kernels as torch.library ops),
+     captured in a CUDA graph by aot_compile, and loaded by
+     ArtifactPredictor, eagerly and captured: every form answers 2
+     batches bit for bit as the eager Predictor; the profiler's kernels
+     of one replay are 1 stem kernel (bf16) or 53 int8 conv and 53
+     quantize kernels (int8), since the Python launch counters do not
+     move on a replay; a process that imports only torch and
+     pose_tpu_torch.ops.library loads both artifacts and answers with the
+     same bits; ms a served batch through BatchingServer, the eager
+     forward against the graph, bf16 and int8, in turns (host clock); the
+     predict CLI on the bf16 .pt2 against its checkpoint, records equal.
 The stem kernel's own phase (after the renorm pair's) holds it against its
 plain version at (64, Cin, 257, 257) for Cin 4, 3 and 1 and at the serving
 shape (8, 4, 257, 257).
@@ -655,11 +671,14 @@ def serve_phase(dev):
     check(launches['split_warp'] == pre.split_batches,
           f'split_warp launched {launches["split_warp"]} times for '
           f'{pre.split_batches} warped batches')
-    # the Predictor's bf16 forwards: 8 served batches, 8 predict_crops and
-    # predict_absolute's
+    # the server's aot_compile: the warm-up forwards and the capture; the
+    # replays (8 served batches, 8 predict_crops and predict_absolute's)
+    # launch the kernel from the graph, without a wrapper call, and
+    # serve_breakdown's profile of a replay shows it
     print(f'serve: stem kernel launches {launches["stem_conv"]}', flush=True)
-    check(launches['stem_conv'] > 0, 'the stem kernel was not launched on '
-          'the serving path')
+    check(launches['stem_conv'] == serve.CAPTURE_WARMUP + 1,
+          'the stem kernel was not launched on the serving path as the '
+          f'capture does: {launches["stem_conv"]}')
     worst = {'relat_cam': 0.0, 'spec_mat': 0.0}
     for got, ref in zip(answers, direct):
         for j, ans in enumerate(got):
@@ -714,6 +733,16 @@ def serve_breakdown(predictor, frames, homs, ext):
           flush=True)
     for name, (t, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]:
         print(f'  {t:8.3f} ms  {n:4d}x  {name[:100]}', flush=True)
+    placed = predictor._place_inputs((pre(frames[:B], homs[:B],
+                                          ext[:B]),))[0]
+    want = {'stem_conv_kernel': 1, 'int8_conv_kernel': 0,
+            'int8_quantize_kernel': 0}
+    counts, events, sessions = replay_kernels(
+        lambda: predictor._run(placed), want)
+    print(f'breakdown: a replay of the served forward under the profiler: '
+          f'{events} device events, {counts} ({sessions} session(s))',
+          flush=True)
+    check(counts == want, f'the served forward\'s replay ran {counts}')
 
 
 def device_ms(launches, iters, flush=None, each=False):
@@ -791,6 +820,44 @@ def profile_step(fn):
             t, n = kernels.get(e.name, (0.0, 0))
             kernels[e.name] = (t + e.time_range.elapsed_us() / 1e3, n + 1)
     return wall, sum(t for t, _ in kernels.values()), kernels
+
+
+# the kernels of a serving replay as the profiler names them
+REPLAY_KERNELS = ('stem_conv_kernel', 'int8_conv_kernel',
+                  'int8_quantize_kernel')
+
+
+def replay_kernels(fn, want):
+    """The kernels of fn() (one forward, a graph's replay) under
+    torch.profiler, recorded in the session's second step after a first
+    step of fn() that warms the profiler up: late in a process that has
+    run many profiler sessions, a session's first few dozen device
+    records can go missing (a bf16 replay's first 35 events on the card,
+    the stem kernel among them). Up to 3 sessions until the counts of
+    REPLAY_KERNELS are `want`. Returns (those counts, the device events
+    recorded, sessions). (The durations of this second step's records ran
+    2-2.5x those of a one-step session on the card, so no time is taken
+    from them.)"""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for attempt in range(1, 4):
+        steps = []
+        with torch.profiler.profile(
+                activities=acts, on_trace_ready=lambda p: steps.append(
+                    [e for e in p.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA]),
+                schedule=torch.profiler.schedule(wait=0, warmup=1,
+                                                 active=1)) as prof:
+            for _ in range(2):
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
+        cuda = steps[-1]
+        counts = {name: sum(name in e.name for e in cuda)
+                  for name in REPLAY_KERNELS}
+        if counts == want:
+            break
+    return counts, len(cuda), attempt
 
 
 def host_ms(fn, n=3):
@@ -3488,10 +3555,11 @@ def quant_phase(dev):
     # passes around the exact form, then back), all after the kernel
     # phase's profiler sessions, so each pays the same host launch path
     qmodel = predictor._quant_model
+    op_route = quant.quantized_conv       # the op, the QuantizedConv's call
 
     def route(name):
         predictor._quant_model = None if name == 'bf16' else qmodel
-        quant.quantized_conv = passes_route if name == 'passes' else fused
+        quant.quantized_conv = passes_route if name == 'passes' else op_route
         return host_ms(lambda: predictor.predict_crops(batches[2]))[1]
 
     turns = {'int8': [], 'bf16': [], 'passes': []}
@@ -3504,7 +3572,7 @@ def quant_phase(dev):
         routed = i8.int8_conv.launches
     finally:
         predictor._quant_model = qmodel
-        quant.quantized_conv = fused
+        quant.quantized_conv = op_route
     wall, busy, kernels = profile_step(lambda: predictor.predict_crops(
         batches[2]))
     q_ms, b_ms, p_ms = (float(np.mean(turns[k])) for k in turns)
@@ -3780,6 +3848,271 @@ def predict_phase(dev, tmp_e, tmp_d):
               f'{name} was not launched on the quant and predict paths')
     print(f'predict: phase {time.perf_counter() - t0:.2f} s', flush=True)
     return rows, cli['stem_conv']
+
+
+# ------------------------------------------------------------ export phase
+
+# the export phase's CLI: seeded 480x640 JPEG frames, one person each
+# (full-frame boxes), one batch of B
+EXPORT_FRAMES = (B, 480, 640)
+# a process that imports torch and the ops library alone loads both
+# artifacts and answers the served batches; argv: the .pt2 paths (comma
+# separated), the inputs' file, the answers' file
+LOAD_ONLY = '''
+import sys
+import torch
+import pose_tpu_torch.ops.library as library
+paths, inputs, out = sys.argv[1:4]
+batches = torch.load(inputs)
+answers = []
+for path in paths.split(','):
+    fn = library.load_artifact(path)
+    with torch.inference_mode():
+        answers.append([{k: v.cpu() for k, v in fn(x.cuda()).items()}
+                        for x in batches])
+torch.save(answers, out)
+bad = sorted(m for m in sys.modules if m.startswith((
+    'pose_tpu_torch.models', 'pose_tpu_torch.serve', 'pose_tpu_torch.quant',
+    'pose_tpu.', 'jax')))
+assert not bad, bad
+print(len(answers), 'artifacts loaded in a process with',
+      len([m for m in sys.modules if m.startswith('pose_tpu_torch')]),
+      'modules of pose_tpu_torch')
+'''
+
+
+class EagerServing:
+    """A Predictor's surface for BatchingServer with its eager forward (no
+    graph; aot_compile is a warm-up): the graph's baseline in the served
+    batch's timing."""
+
+    def __init__(self, predictor):
+        self.predictor = predictor
+        self.batch_size, self.device = predictor.batch_size, predictor.device
+        self._warm = False
+
+    def _place_inputs(self, inputs):
+        return self.predictor._place_inputs(inputs)
+
+    @torch.inference_mode()
+    def _run(self, inputs):
+        return self.predictor._forward_impl(*inputs)
+
+    def aot_compile(self):
+        """The warm-up, once (BatchingServer's worker calls it before every
+        batch)."""
+        if not self._warm:
+            p = self.predictor
+            self._run(p._sample_inputs(self.batch_size))
+            torch.cuda.synchronize()
+            self._warm = True
+        return self._run
+
+
+def served_ms(predictor, batches):
+    """Host-clock ms a served batch through a BatchingServer: B single-crop
+    requests submitted, to the B-th answer; (first, median of the rest)."""
+    from pose_tpu_torch import serve
+
+    ms = []
+    with serve.BatchingServer(predictor, max_delay_ms=50.0) as server:
+        for x in batches:
+            t0 = time.perf_counter()
+            for fut in [server.submit(c) for c in x]:
+                fut.result(timeout=300)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        check(server.batches == len(batches), f'{server.batches} batches '
+              f'served for {len(batches)}')
+    return ms[0], float(np.median(ms[1:]))
+
+
+def same_answers(got, want):
+    """Whether two lists of answer dicts (numpy or tensors) are equal bit
+    for bit."""
+    return len(got) == len(want) and all(
+        set(g) == set(w) and all(np.array_equal(np.asarray(g[k]),
+                                                np.asarray(w[k])) for k in w)
+        for g, w in zip(got, want))
+
+
+def export_cli(dev, tmp, predictor, pt2):
+    """pose_tpu_torch.predict on seeded JPEG frames with the flagship's
+    model flags, once on a checkpoint of `predictor`'s weights and once on
+    its .pt2 (exported at batch B): the records must be equal. Returns the
+    two main() walls in s."""
+    from PIL import Image
+
+    from pose_tpu_torch import predict
+
+    rng = np.random.RandomState(SEED + 32)
+    frames = os.path.join(tmp, 'frames')
+    os.makedirs(frames)
+    for i in range(EXPORT_FRAMES[0]):
+        Image.fromarray(rng.randint(0, 256, EXPORT_FRAMES[1:] + (3,),
+                                    dtype=np.uint8)).save(
+            os.path.join(frames, f'frame_{i}.jpg'))
+    ckpt = os.path.join(tmp, 'model_1.pth')
+    torch.save({'state': {}, 'model': predictor.model.state_dict()}, ckpt)
+    flags = ['-model', 'resnet50', '-half_acc', '-joint_space',
+             '-extra_channel', '-num_joints', '19', '-skeleton', 'cmu',
+             '-batch_size', str(B), '-images',
+             os.path.join(frames, '*.jpg'), '-track_ids']
+    blobs, walls = [], []
+    for tag, path in (('checkpoint', ckpt), ('pt2', pt2)):
+        t0 = time.perf_counter()
+        blobs.append(predict.main(flags + [
+            '-model_path', path, '-out', os.path.join(tmp, f'{tag}.json')],
+            device=dev))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    recs = [b['frames'] for b in blobs]
+    check(len(recs[0]) == EXPORT_FRAMES[0], f'{len(recs[0])} records')
+    for rec in recs[1]:
+        for k in ('relat_cam', 'spec_mat', 'absolute_cam'):
+            check(np.all(np.isfinite(rec[k])), f'CLI on the .pt2: {k} not '
+                  'finite')
+    check(recs[0] == recs[1], 'the CLI on the .pt2 gives other records than '
+          'on the checkpoint')
+    return walls
+
+
+def export_phase(dev):
+    """The deployment slice's main path at full width (ResNet-50 rgb,
+    -half_acc -extra_channel -joint_space, batch 8): a bf16 and an int8
+    Predictor (calibrated on 2 batches of crops from the gated split warp
+    and the bbox mask), each exported to a .pt2, captured by aot_compile,
+    and its artifact loaded by ArtifactPredictor (eagerly and captured):
+    every form answers two batches bit for bit as the eager Predictor; a
+    replay's profiled kernels are the stem kernel (bf16) or 53 int8 conv
+    and 53 quantize kernels (int8); a process that imports only torch and
+    the ops library answers both artifacts with the same bits; ms a served
+    batch through BatchingServer, eager against the graph, bf16 and int8,
+    in turns (host clock, 8 batches each, median of 7); the predict CLI on
+    the bf16 .pt2 against its checkpoint. Returns the wrapper launches of
+    the path (eager forwards, warm-ups and captures; a replay makes
+    none)."""
+    from pose_tpu_torch import quant, serve
+    from pose_tpu_torch.ops import int8_conv as i8
+    from pose_tpu_torch.ops import stem
+
+    t_phase = time.perf_counter()
+    rng = np.random.RandomState(SEED + 31)
+    batches = serving_crops(rng, dev, 4)
+    predictors = {name: serve.Predictor(serving_args(), 'rgb', batch_size=B,
+                                        device=dev, seed=SEED)
+                  for name in ('bf16', 'int8')}
+    predictors['int8'].quantize(batches[:2])
+    n_q = len(quant.quantized_convs(predictors['int8']._quant_model))
+    served = batches[2:]
+    stem.stem_conv.launches = 0
+    i8.quantized_conv.launches = i8.quantized_conv.quantize_launches = 0
+    i8.int8_conv.launches = 0
+    eager, paths = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, p in predictors.items():
+            eager[name] = [p.predict_crops(x) for x in served]
+            t0 = time.perf_counter()
+            paths[name] = p.export_artifact(os.path.join(tmp, f'{name}.pt2'))
+            export_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            p.aot_compile()
+            torch.cuda.synchronize()
+            capture_s = time.perf_counter() - t0
+            graph = [p.predict_crops(x) for x in served]
+            t0 = time.perf_counter()
+            art = serve.ArtifactPredictor(paths[name], device=dev)
+            load_s = time.perf_counter() - t0
+            check(art.in_shapes == ((B, SIDE, SIDE, 4),)
+                  and art.out_shapes == ((B, 19, 3), (B, 19, 2)),
+                  f'{name} artifact shapes {art.in_shapes} '
+                  f'{art.out_shapes}')
+            art_eager = [art.predict_crops(x) for x in served]
+            art.aot_compile()
+            art_graph = [art.predict_crops(x) for x in served]
+            for form, got in (('graph', graph), ('artifact', art_eager),
+                              ('artifact graph', art_graph)):
+                errs = [decode_err(g, e) for g, e in zip(got, eager[name])]
+                check(same_answers(got, eager[name]), f'{name}: the {form} '
+                      f'answers differ from the eager Predictor\'s: {errs}')
+            placed = p._place_inputs((served[0],))[0]
+            want = ({'stem_conv_kernel': 1, 'int8_conv_kernel': 0,
+                     'int8_quantize_kernel': 0} if name == 'bf16' else
+                    {'stem_conv_kernel': 0, 'int8_conv_kernel': n_q,
+                     'int8_quantize_kernel': n_q})
+            counts, events, _ = replay_kernels(lambda: p._run(placed), want)
+            a_counts, a_events, _ = replay_kernels(
+                lambda: art._run(placed), want)
+            replay_ms = time_ms(lambda: p._run(placed), 20)
+            a_replay_ms = time_ms(lambda: art._run(placed), 20)
+            mib = os.path.getsize(paths[name]) / 2**20
+            print(f'export ({name}): .pt2 of {mib:.1f} MiB exported in '
+                  f'{export_s:.2f} s, loaded in {load_s:.2f} s; '
+                  f'aot_compile (warm-up and capture) {capture_s:.2f} s; the '
+                  f'graph, the artifact and the artifact\'s graph answer '
+                  f'{len(served)} batches bit for bit as the eager '
+                  f'Predictor; a replay (copy-in, graph, clone of the '
+                  f'outputs): {replay_ms:.3f} ms between CUDA events '
+                  f'(median of 20), {events} device events, {counts}; the '
+                  f'artifact\'s replay {a_replay_ms:.3f} ms, {a_events} '
+                  f'events, {a_counts}', flush=True)
+            check(counts == want and a_counts == want, f'{name}: replay '
+                  f'kernels {counts}, artifact {a_counts}, want {want}')
+        launches = {'stem_conv': stem.stem_conv.launches,
+                    'int8_conv': i8.quantized_conv.launches,
+                    'int8_quantize': i8.quantized_conv.quantize_launches}
+        check(i8.int8_conv.launches == 0, 'the exact int8 form ran on the '
+              'export path')
+
+        torch.save([x.cpu() for x in served], os.path.join(tmp, 'x.pt'))
+        env = dict(os.environ, PYTHONPATH=os.path.dirname(
+            os.path.abspath(__file__)))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, '-c', LOAD_ONLY,
+             ','.join(paths[k] for k in predictors),
+             os.path.join(tmp, 'x.pt'), os.path.join(tmp, 'answers.pt')],
+            env=env, capture_output=True, text=True, timeout=600)
+        check(proc.returncode == 0, f'the load-only process failed:\n'
+              f'{proc.stderr[-3000:]}')
+        loaded = torch.load(os.path.join(tmp, 'answers.pt'))
+        for name, got in zip(predictors, loaded):
+            check(same_answers([{k: v[:B] for k, v in g.items()} for g in got],
+                               eager[name]),
+                  f'{name}: the load-only process answers differently')
+        print(f'export: {proc.stdout.strip()}, equal bits on both '
+              f'({time.perf_counter() - t0:.2f} s, the process included)',
+              flush=True)
+
+        requests = batches + batches
+        turns = {(name, form): [] for name in predictors
+                 for form in ('eager', 'graph')}
+        for name, form in (('bf16', 'eager'), ('bf16', 'graph'),
+                           ('int8', 'eager'), ('int8', 'graph'),
+                           ('int8', 'graph'), ('int8', 'eager'),
+                           ('bf16', 'graph'), ('bf16', 'eager')):
+            p = predictors[name]
+            turns[name, form].append(served_ms(
+                p if form == 'graph' else EagerServing(p), requests))
+        print(f'export: ms a served batch of {B} through BatchingServer '
+              f'(host clock, {len(requests)} batches, first, median of the '
+              f'rest; two turns each): ' + '; '.join(
+                  f'{name} {form} ' + ', '.join(
+                      f'{first:.2f} / {med:.2f}' for first, med in v)
+                  for (name, form), v in turns.items()) + f' ({card_line()})',
+              flush=True)
+        walls = export_cli(dev, tmp, predictors['bf16'], paths['bf16'])
+        print(f'export: the predict CLI on the bf16 .pt2 gives the '
+              f'checkpoint run\'s records; main() {walls[0]:.2f} s on the '
+              f'checkpoint, {walls[1]:.2f} s on the .pt2', flush=True)
+    print(f'export: phase {time.perf_counter() - t_phase:.2f} s; wrapper '
+          f'launches {launches}', flush=True)
+    return launches
+
+
+def export_only(dev):
+    """`--only export`: the export phase."""
+    export_phase(dev)
+    return []
 
 
 # ------------------------------------------------------------ resume phase
@@ -4305,15 +4638,15 @@ def threads_only(dev):
 
 def main(argv):
     """No arguments: every phase. `--only
-    split,split_depth,stem,banded,int8,resume,threads` (any of them): the
-    build and those phases (`resume` on stores of its own), then the
-    kernel phases' rows, and no result line."""
+    split,split_depth,stem,banded,int8,resume,threads,export` (any of
+    them): the build and those phases (`resume` on stores of its own),
+    then the kernel phases' rows, and no result line."""
     only = []
     if argv[:1] == ['--only'] and len(argv) == 2:
         only = argv[1].split(',')
     elif argv:
         print('usage: chip_smoke.py [--only '
-              'split,split_depth,stem,banded,int8,resume,threads]',
+              'split,split_depth,stem,banded,int8,resume,threads,export]',
               file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -4353,7 +4686,8 @@ def main(argv):
                   split_warp_depth_phase, 'stem': stem_phase,
                   'banded': lambda dev: list(banded_warp_phase(dev).values()),
                   'int8': int8_only, 'resume': resume_only,
-                  'threads': threads_only}
+                  'threads': threads_only,
+                  'export': export_only}
         rows = []
         for p in only:
             row = phases[p](dev)
@@ -4398,6 +4732,12 @@ def main(argv):
                      os.path.join(tmp_d, 'ntu', 'metadata.json'))
         aug = augment_phase(dev, train_items, train_median)
         int8_rows, predict_stem = predict_phase(dev, tmp_e, tmp_d)
+    export = export_phase(dev)
+    for row in int8_rows:
+        row['launches_by_path']['export'] = export[row['name']]
+        row['launches'] = sum(row['launches_by_path'].values())
+    check(export['stem_conv'] > 0 and export['int8_conv'] > 0,
+          f'the export path launched {export}')
     # the split and stem kernels run on several paths: each path's count,
     # and their sum as the row's launches
     by_path = {'split_warp': {'serve': serve_launches['split_warp'],
@@ -4417,7 +4757,8 @@ def main(argv):
                              'entry': entry['stem_conv'],
                              'depth_entry': depth_entry['stem_conv'],
                              'augment_entry': aug['stem_conv'],
-                             'predict': predict_stem}}
+                             'predict': predict_stem,
+                             'export': export['stem_conv']}}
     kernels += depth_rows + [stem_row] + int8_rows
     for k in kernels:
         if k['name'] in by_path:

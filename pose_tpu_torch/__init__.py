@@ -48,7 +48,14 @@ Ported so far:
 - the run's full state and the trace, in both entry points: `-save_state`
   and `-save_every` (`train.state_io`, `train.engine.MidEpochSaver`, the
   loaders' `start_batch` fast-forward; a resumed run equals the
-  uninterrupted one bit for bit) and `-trace_dir` (`utils.profiling`).
+  uninterrupted one bit for bit) and `-trace_dir` (`utils.profiling`);
+- the compiled serving forward and deployment artifacts: on the card
+  `serve.Predictor.aot_compile` captures the forward in one CUDA graph,
+  which predict_crops and `serve.BatchingServer` replay;
+  `Predictor.export_artifact` writes a `torch.export` program (`.pt2`)
+  that `serve.ArtifactPredictor` and the predict CLI serve with only
+  `ops.library` imported (the stem and int8 kernels as `torch.library`
+  ops).
 
 Entry points run on `cuda` unless the caller passes `device='cpu'`; without
 a GPU and without an explicit device they raise (`runtime.resolve_device`).

@@ -24,7 +24,9 @@ epilogue).
   (B, Cout, OH, OW) in x's dtype, channels_last. On the card one C call
   launches the quantize pass and the conv with the fused epilogue (and
   counts them in `.launches` and `.quantize_launches`) or raises; on the
-  CPU it runs `quantized_conv_plain`;
+  CPU it runs `quantized_conv_plain`. The model calls it as the
+  `pose_tpu_torch::quantized_conv` op (`ops/library.py`). Inside a
+  CUDA-graph capture its input scratch is the graph's (`graph_scratch`);
 - `quantized_conv_plain` — the plain chain: quantize (a true division by
   the 0-d scale, round half to even, clamp), `int8_conv_plain`, the
   int32 sums rounded to bf16 when acc_dtype is bf16, times `scale`, plus
@@ -265,7 +267,18 @@ def _buffer(dev, stream, nbytes):
     """The address of a scratch buffer of at least nbytes on dev for the
     quantized input, kept for one stream of the calling thread: the calls
     of a thread on a stream run in order, so each may reuse it, and no
-    other thread's call reads or frees it."""
+    other thread's call reads or frees it. Inside a CUDA-graph capture the
+    call takes a buffer of its own from the graph's memory pool, kept in
+    the list of the enclosing `graph_scratch()` (the graph's owner keeps
+    it as long as the graph): a replay reads that address, so it must not
+    be the thread's eager buffer, which the thread's next eager call
+    overwrites or a larger one replaces."""
+    if torch.cuda.is_current_stream_capturing():
+        buf = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+        kept = getattr(_scratch, 'graph', None)
+        if kept is not None:
+            kept.append(buf)
+        return buf.data_ptr()
     bufs = getattr(_scratch, 'bufs', None)
     if bufs is None:
         bufs = _scratch.bufs = {}
@@ -276,6 +289,18 @@ def _buffer(dev, stream, nbytes):
                           device=dev)
         bufs[key] = buf
     return buf.data_ptr()
+
+
+@contextlib.contextmanager
+def graph_scratch():
+    """Around a CUDA-graph capture in the calling thread: yields the list
+    that keeps the scratch buffers the captured quantized_conv calls take,
+    which the caller keeps alive with the graph."""
+    kept = _scratch.graph = []
+    try:
+        yield kept
+    finally:
+        _scratch.graph = None
 
 
 def _on(dev):

@@ -24,9 +24,10 @@
   f32 sum in another order (TF32 stays off, runtime.no_tf32); the
   kernel's tensor-core sums are within K * 2^-23 of its sum of |terms|;
 - `StemConv` — the model's non-partial stem (`conv1`, the fusion net's
-  `conv2`): an nn.Conv2d whose forward takes the kernel route when the
-  input and weight are bf16, autograd records nothing and Cin is 1, 3 or 4
-  (JAX's kernel has no backward), and F.conv2d otherwise.
+  `conv2`): an nn.Conv2d whose forward takes the kernel route (the
+  `pose_tpu_torch::stem_conv` op of `ops/library.py`) when the input and
+  weight are bf16, autograd records nothing and Cin is 1, 3 or 4 (JAX's
+  kernel has no backward), and F.conv2d otherwise.
 
 Importing this module compiles nothing and needs no GPU.
 """
@@ -175,6 +176,12 @@ def stem_conv_fwd(x_padded, w, side_in):
     return stem_conv(x, w.to(torch.bfloat16).contiguous(), torch.float32)
 
 
+def _capturing(t):
+    """Whether a CUDA graph is being captured on t's device's current
+    stream."""
+    return t.is_cuda and torch.cuda.is_current_stream_capturing()
+
+
 class StemConv(nn.Conv2d):
     """The 7x7/2 stem convolution, Cin -> 64, bias-free, its kernel the
     `weight` parameter (OIHW, state-dict key `<name>.weight`). A bf16
@@ -194,8 +201,8 @@ class StemConv(nn.Conv2d):
         if (x.dtype == torch.bfloat16 and w.dtype == torch.bfloat16
                 and not recorded and x.shape[1] in CIN):
             w_hwio, w_packed = self._packed()
-            return stem_conv(x, w_hwio, torch.bfloat16,
-                             w_packed).permute(0, 3, 1, 2)
+            return torch.ops.pose_tpu_torch.stem_conv.default(
+                x, w_hwio, w_packed, torch.bfloat16)
         return F.conv2d(x, w, stride=2, padding=3)
 
     def _packed(self):
@@ -209,8 +216,15 @@ class StemConv(nn.Conv2d):
         step) are packed anew each time, a Predictor's bf16 weights once.
         An inference tensor (made under torch.inference_mode) has no
         version counter and may change in place there, so it is packed on
-        every forward and nothing is kept."""
+        every forward and nothing is kept. A forward that torch.export
+        traces or a CUDA graph captures packs as a step of its graph, from
+        the weight the graph reads, and neither reads nor writes the kept
+        entry (its tensors are fake there, or its memory outside the
+        graph's)."""
         w = self.weight
+        if torch.compiler.is_compiling() or _capturing(w):
+            w_hwio = w.detach().permute(2, 3, 1, 0).contiguous()
+            return w_hwio, pack_weight(w_hwio)
         kept = self._pack
         if (w.is_inference() or kept is None or kept[0] is not w
                 or kept[2] != w._version

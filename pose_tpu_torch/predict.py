@@ -22,10 +22,15 @@ the distilled depth student, `-do_fusion` with both streams,
 `-partial_conv` for the mask-propagating trunks; `-nexponent`,
 `-to_depth` and `-depth_thresh` must match the training flags.
 
+A `.pt2` -model_path (`serve.Predictor.export_artifact`) serves through
+`serve.ArtifactPredictor` at the artifact's baked batch size and
+precision, after JAX's checks of its shapes against the flags; a JAX
+`.jaxexport` file is refused (it needs JAX).
+
 Device: CUDA unless the caller passes one (`main(argv, device='cpu')`, as
-the tests do); without a GPU and without a device it raises. Parts not
-ported yet raise NotImplementedError naming their ROADMAP item: `-mesh`
-above 1 and a deployment artifact as -model_path.
+the tests do); without a GPU and without a device it raises. `-mesh` above
+1 is not ported yet and raises NotImplementedError naming its ROADMAP
+item.
 """
 
 import argparse
@@ -44,8 +49,9 @@ from .geometry import camera as cameralib
 from .models.convert import load_torch_file
 from .ops import recon
 
-# deployment artifacts (JAX's jax.export file, torch.export's) -> not ported
-ARTIFACT_SUFFIXES = ('.jaxexport', '.pt2')
+# deployment artifacts: the port's torch.export file, which it serves, and
+# JAX's jax.export file, which it refuses
+ARTIFACT_SUFFIX, JAX_ARTIFACT_SUFFIX = '.pt2', '.jaxexport'
 
 
 def build_parser():
@@ -54,7 +60,9 @@ def build_parser():
                         choices=['resnet18', 'resnet50'])
     parser.add_argument('-model_path', required=True,
                         help='model_<E>.pth checkpoint (ours, pose_tpu\'s or '
-                             'reference-converted), or best.pth beside it')
+                             'reference-converted), or best.pth beside it, '
+                             'or a .pt2 deployment artifact '
+                             '(Predictor.export_artifact)')
     # model-shape flags; must match the checkpoint (opts.py defaults)
     parser.add_argument('-side_in', default=257, type=int)
     parser.add_argument('-stride', default=16, type=int)
@@ -146,11 +154,6 @@ def check_ported(args):
     if args.mesh > 1:
         raise NotImplementedError('-mesh: data-parallel serving is not '
                                   'ported yet (ROADMAP Queue 1 item 4)')
-    if args.model_path.endswith(ARTIFACT_SUFFIXES):
-        raise NotImplementedError(
-            f'-model_path {args.model_path}: deployment artifacts '
-            '(export_artifact, ArtifactPredictor) are not ported yet '
-            '(ROADMAP Queue 1 item 3)')
 
 
 def _require(module, flag):
@@ -507,11 +510,52 @@ def _check_flags(args, variant, need_depth):
                          'never reads it')
 
 
+def artifact_predictor(args, variant, device):
+    """The ArtifactPredictor of a .pt2 -model_path, checked against the
+    flags with JAX's checks and messages (predict.py:594-630)."""
+    if args.quantize:
+        raise SystemExit('-quantize needs a checkpoint model; a .pt2 '
+                         'artifact bakes its precision at export time '
+                         '(quantize before export_artifact)')
+    try:
+        predictor = serve.ArtifactPredictor(args.model_path, device=device)
+    except ValueError as e:
+        raise SystemExit(str(e))
+    shape = predictor.in_shapes[0]
+    if shape[1] != args.side_in:
+        raise SystemExit(f'artifact expects side_in {shape[1]}, '
+                         f'flags say {args.side_in}')
+    n_inputs = 2 if variant in ('fusion', 'partial_fusion') else 1
+    if len(predictor.in_shapes) != n_inputs:
+        raise SystemExit(f'artifact takes {len(predictor.in_shapes)} '
+                         f'input stream(s); the {variant} flags '
+                         f'need {n_inputs}')
+    want_ch = (3 if variant in ('fusion', 'partial_fusion')
+               else 1 if args.depth_only
+               else 4 if args.extra_channel else 3)
+    if shape[3] != want_ch:
+        raise SystemExit(f'artifact expects {shape[3]}-channel input; '
+                         f'the flags imply {want_ch} (check '
+                         '-extra_channel / -depth_only)')
+    art_joints = predictor.out_shapes[0][1]
+    if art_joints != args.num_joints:
+        raise SystemExit(f'artifact predicts {art_joints} joints; '
+                         f'flags say -num_joints {args.num_joints} '
+                         '(and check -skeleton)')
+    return predictor
+
+
 def main(argv=None, device=None):
     """Run the CLI on `argv` (sys.argv[1:] by default) on `device` (CUDA
     by default). Returns the output blob, also written to -out."""
     args = build_parser().parse_args(argv)
     check_ported(args)
+    if args.model_path.endswith(JAX_ARTIFACT_SUFFIX):
+        raise SystemExit(
+            f'-model_path {args.model_path}: pose_tpu_torch reads its own '
+            f'{ARTIFACT_SUFFIX} artifacts; a {JAX_ARTIFACT_SUFFIX} file is '
+            'StableHLO and needs JAX (export one for the port with '
+            'pose_tpu_torch.serve.Predictor.export_artifact)')
     args.model_path = resolve_model_path(args.model_path)
     variant = resolve_variant(args)
     need_color = not args.depth_only
@@ -581,16 +625,20 @@ def main(argv=None, device=None):
         source = dentries
         total = len(dentries)
 
-    pargs = serve.default_args(
-        model=args.model, side_in=args.side_in, stride=args.stride,
-        num_joints=args.num_joints, depth=args.depth,
-        depth_range=args.depth_range, joint_space=args.joint_space,
-        extra_channel=args.extra_channel, half_acc=args.half_acc,
-        depth_only=args.depth_only)
-    bs = max(1, min(args.batch_size, total or args.batch_size))
-    predictor = serve.Predictor.from_checkpoint(
-        args.model_path, pargs, variant=variant, batch_size=bs,
-        device=device)
+    if args.model_path.endswith(ARTIFACT_SUFFIX):
+        predictor = artifact_predictor(args, variant, device)
+        bs = predictor.batch_size
+    else:
+        pargs = serve.default_args(
+            model=args.model, side_in=args.side_in, stride=args.stride,
+            num_joints=args.num_joints, depth=args.depth,
+            depth_range=args.depth_range, joint_space=args.joint_space,
+            extra_channel=args.extra_channel, half_acc=args.half_acc,
+            depth_only=args.depth_only)
+        bs = max(1, min(args.batch_size, total or args.batch_size))
+        predictor = serve.Predictor.from_checkpoint(
+            args.model_path, pargs, variant=variant, batch_size=bs,
+            device=device)
 
     def pad(seq, bs):
         seq = list(seq)

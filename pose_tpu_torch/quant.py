@@ -9,9 +9,9 @@ pose_tpu/quant.py).
   input's absmax (`Calibrator`);
 - accumulation: exact int32 sums in the hand-written int8 conv
   (`ops/int8_conv.py`), dequantized to the compute dtype before the BN and
-  ReLU that follow; on the card each QuantizedConv is one call,
-  `ops/int8_conv.quantized_conv` (the quantize pass and the conv with the
-  dequant in its epilogue).
+  ReLU that follow; on the card each QuantizedConv is one call of the
+  `pose_tpu_torch::quantized_conv` op, `ops/int8_conv.quantized_conv`
+  (the quantize pass and the conv with the dequant in its epilogue).
 
 JAX's two Flax method interceptors become torch idiom: calibration is a
 forward pre-hook on every `nn.Conv2d` (the stems' `StemConv` included)
@@ -44,7 +44,8 @@ import torch
 from torch import nn
 
 from .models.convert import to_jax_path
-from .ops.int8_conv import Geometry, pack_weight, quantized_conv
+from .ops.int8_conv import Geometry, pack_weight
+from .ops.library import quantized_conv
 
 # regressor heads (rgb dual heads + the depth/fusion family's single head)
 DEFAULT_SKIP = ('cam_regressor', 'mat_regressor', 'regressor')
@@ -147,12 +148,13 @@ def _padding(conv, path):
 
 
 class QuantizedConv(nn.Module):
-    """One calibrated conv of the int8 forward, one call of
-    `quantized_conv`: quantize the input with the calibrated scale, the
-    int8 conv (exact int32 sums; rounded to bf16 when acc_dtype is bf16,
-    JAX's `acc_dtype`), dequantize, add the bias, cast back to the input's
-    dtype. The weight is quantized from the float conv's weight here,
-    once, and packed for the kernel."""
+    """One calibrated conv of the int8 forward, one call of the
+    `pose_tpu_torch::quantized_conv` op (`ops/library.py`, the wrapper
+    `ops/int8_conv.quantized_conv`): quantize the input with the
+    calibrated scale, the int8 conv (exact int32 sums; rounded to bf16
+    when acc_dtype is bf16, JAX's `acc_dtype`), dequantize, add the bias,
+    cast back to the input's dtype. The weight is quantized from the float
+    conv's weight here, once, and packed for the kernel."""
 
     def __init__(self, conv, absmax, path, acc_dtype=torch.int32):
         super().__init__()

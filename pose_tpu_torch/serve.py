@@ -4,17 +4,24 @@
     coords = predictor.predict_crops(crops)                # (B, J, 3) mm
     absolute = predictor.predict_absolute(crops, intrinsics)
 
+    predictor.export_artifact('pose.pt2')                 # deployment file
+    served = ArtifactPredictor('pose.pt2')                 # no model code
+
 Same public surface and output dicts as JAX, for every model variant
 (rgb, depth, fusion, partial_depth, partial_fusion); inputs are NHWC
 crops, as there, two streams (colour, depth) for the fusion variants. The
-forward runs eagerly at a fixed batch size (ragged batches are
-edge-padded); `aot_compile` is the warm-up call. Under -half_acc the
+forward runs at a fixed batch size (ragged batches are edge-padded):
+eagerly, or, once `aot_compile` ran on the card, as one CUDA graph of the
+whole forward and decode (`CapturedForward`, the counterpart of JAX's AOT
+executable; on the CPU `aot_compile` is a warm-up). Under -half_acc the
 parameters are bf16 and BN statistics f32, the JAX `_cast_floats`
 semantics (serve.py:160-195), and head features are cast to f32 before the
 softmax. `quantize` / `quantize_with_scales` switch the forward to int8
 convolutions (`quant.py`, the hand-written int8 conv on the card).
-Device meshes, `export_artifact` and `ArtifactPredictor` are not ported
-yet (ROADMAP)."""
+`export_artifact` writes the forward with its weights and decode as a
+`torch.export` program (`.pt2`); `load_artifact` and `ArtifactPredictor`
+serve it with only `ops/library.py`'s ops registered. Device meshes are
+not ported yet (ROADMAP Queue 1 item 4)."""
 
 import queue as queue_lib
 import threading
@@ -24,12 +31,18 @@ from concurrent.futures import Future
 
 import numpy as np
 import torch
+from torch import nn
 
 from . import quant, runtime
 from .data import augment
 from .models import build_model, init_weights
 from .models.convert import complete_state, load_torch_file
-from .ops import heatmap, recon, warp
+from .ops import heatmap, int8_conv, library, recon, warp
+
+# forwards a capture runs first on a side stream: cuDNN's algorithm choice,
+# the kernels' one-time set-up (their shared-memory attributes, the int8
+# plans) and lazy module loading happen there, not in the capture
+CAPTURE_WARMUP = 2
 
 
 def default_args(**over):
@@ -53,7 +66,126 @@ def _edge_pad(inputs, target):
                  for x in inputs)
 
 
-class Predictor:
+class CapturedForward:
+    """One CUDA graph of a fixed-shape forward `fn(*inputs) -> {name:
+    tensor}` on the card, the counterpart of JAX's AOT executable:
+    captured once at the shapes and dtypes of `sample_inputs`, after
+    CAPTURE_WARMUP forwards on a side stream, into static input and output
+    tensors. A call copies its inputs in, replays the graph and returns
+    clones of the outputs, holding a lock across the three, so threads
+    may share it; a call on another stream waits for the last replay's
+    end. The int8 convs' input scratch is the graph's own
+    (`int8_conv.graph_scratch`). A failed capture raises."""
+
+    def __init__(self, fn, sample_inputs):
+        self.device = sample_inputs[0].device
+        self.inputs = tuple(x.clone() for x in sample_inputs)
+        current = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            for _ in range(CAPTURE_WARMUP):
+                fn(*self.inputs)
+        current.wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with int8_conv.graph_scratch() as self._scratch, \
+                torch.cuda.graph(self.graph):
+            self.outputs = fn(*self.inputs)
+        self._lock = threading.Lock()
+        self._done = torch.cuda.Event()
+
+    def matches(self, inputs):
+        """Whether `inputs` have the captured shapes, dtypes and device."""
+        return len(inputs) == len(self.inputs) and all(
+            x.shape == s.shape and x.dtype == s.dtype and x.device == s.device
+            for x, s in zip(inputs, self.inputs))
+
+    def __call__(self, inputs):
+        with self._lock:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(self._done)
+            for static, x in zip(self.inputs, inputs):
+                static.copy_(x)
+            self.graph.replay()
+            out = {k: v.clone() for k, v in self.outputs.items()}
+            self._done.record(stream)
+        return out
+
+
+class _ServingForward(nn.Module):
+    """A Predictor's serving forward (input cast, model, decode) as a
+    module for torch.export: its serving model (the float one or the int8
+    copy) is a submodule, so its weights are the program's."""
+
+    def __init__(self, predictor):
+        super().__init__()
+        self.model = predictor._serving_model()
+        self._forward = predictor._forward_impl
+
+    def forward(self, *inputs):
+        return self._forward(*inputs)
+
+
+class _FixedBatch:
+    """The serving surface Predictor and ArtifactPredictor share: a
+    forward at one batch size (`_forward_impl`, inputs placed and padded by
+    `_place_inputs`), run eagerly or, after aot_compile on the card, as a
+    CapturedForward. Subclasses set `device`, `batch_size`,
+    `_sample_inputs(b)` and call `_init_serving()`."""
+
+    def _init_serving(self):
+        self._warm = False
+        self._graph = None                   # aot_compile's CapturedForward
+        # aot_compile's capture against a swap of the forward
+        self._lock = threading.Lock()
+
+    @torch.inference_mode()
+    def _run(self, inputs):
+        """One forward on placed inputs: the captured graph when
+        aot_compile made one and the inputs have its shapes (JAX's `_run`,
+        serve.py:197), else the eager forward."""
+        graph = self._graph
+        if graph is not None and graph.matches(inputs):
+            return graph(inputs)
+        return self._forward_impl(*inputs)
+
+    def predict_crops(self, *inputs):
+        """Root-relative 3D (and 2D when joint_space) for prepared NHWC
+        crops; numpy outputs, batch padding removed."""
+        inputs, b = self._place_inputs(inputs)
+        out = self._run(inputs)
+        return {k: v[:b].cpu().numpy() for k, v in out.items()}
+
+    def warm_up(self):
+        """One forward at the configured batch size, waited for. cuDNN
+        algorithm choice, lazy module loading and the calling thread's
+        cuDNN and cuBLAS handles happen here, not on the first request; a
+        thread that runs forwards warms up in that thread."""
+        self._run(self._sample_inputs(self.batch_size))
+        if self.device.type == 'cuda':
+            torch.cuda.synchronize(self.device)
+
+    def aot_compile(self):
+        """On the card: capture the forward at batch_size in one CUDA graph
+        (`CapturedForward`), which predict_crops, predict_absolute and
+        BatchingServer then replay for every batch_size-shaped (or padded
+        ragged) batch; a failed capture raises. On the CPU: the warm-up of
+        the calling thread (`warm_up`). Idempotent; returns the forward
+        (`_run`)."""
+        with self._lock:
+            if self.device.type != 'cuda':
+                if not self._warm:
+                    self.warm_up()
+                    self._warm = True
+            elif self._graph is None:
+                with torch.inference_mode():
+                    self._graph = CapturedForward(
+                        self._forward_impl,
+                        self._sample_inputs(self.batch_size))
+        return self._run
+
+
+class Predictor(_FixedBatch):
     """Fixed-batch pose predictor for one model variant on one device.
 
     state_dict: a port/reference-keyed state_dict (convert.py), loaded with
@@ -84,7 +216,7 @@ class Predictor:
         self.model = model                   # the float model, always
         self._quant_scales = None            # set by quantize_with_scales
         self._quant_model = None             # the int8 serving copy
-        self._warm = False
+        self._init_serving()
 
     @classmethod
     def from_checkpoint(cls, path, args, variant='rgb', batch_size=8,
@@ -125,10 +257,12 @@ class Predictor:
         return [x.permute(0, 3, 1, 2).to(self.dtype).contiguous(
             memory_format=torch.channels_last) for x in inputs]
 
+    def _serving_model(self):
+        return (self._quant_model if self._quant_model is not None
+                else self.model)
+
     def _forward_impl(self, *inputs):
-        model = (self._quant_model if self._quant_model is not None
-                 else self.model)
-        out = model(*self._model_inputs(inputs))
+        out = self._serving_model()(*self._model_inputs(inputs))
         if self.variant == 'rgb' and self.args.joint_space:
             cam_feat, mat_feat = out
         elif self.variant == 'rgb':
@@ -144,17 +278,6 @@ class Predictor:
             hm2 = heatmap.to_heatmap2d(mat_feat.float(), self.args.num_joints)
             result['spec_mat'] = heatmap.decode2d(hm2, self.args.side_in)
         return result
-
-    @torch.inference_mode()
-    def _run(self, inputs):
-        return self._forward_impl(*inputs)
-
-    def predict_crops(self, *inputs):
-        """Root-relative 3D (and 2D when joint_space) for prepared NHWC
-        crops; numpy outputs, batch padding removed."""
-        inputs, b = self._place_inputs(inputs)
-        out = self._run(inputs)
-        return {k: v[:b].cpu().numpy() for k, v in out.items()}
 
     def predict_absolute(self, crops, intrinsics, key_index=0):
         """Absolute camera-space joints through the least-squares root
@@ -201,36 +324,101 @@ class Predictor:
         """Apply previously calibrated activation scales (see quantize):
         the weights are quantized once, here, into the int8 serving copy
         (`quant.quantize_model`); `self.model` keeps the float model, so
-        this may run again with another skip list."""
-        self._quant_scales = dict(scales)
-        self._quant_model = quant.quantize_model(
-            self.model, self._quant_scales, tuple(skip), acc_dtype)
-        self._warm = False
+        this may run again with another skip list. The graph of an earlier
+        aot_compile is dropped, as JAX drops its stale AOT executable
+        (serve.py:280-281): the next aot_compile captures the int8
+        forward."""
+        with self._lock:
+            self._quant_scales = dict(scales)
+            self._quant_model = quant.quantize_model(
+                self.model, self._quant_scales, tuple(skip), acc_dtype)
+            self._warm = False
+            self._graph = None
         return self
 
-    def warm_up(self):
-        """One forward at the configured batch size, waited for. cuDNN
-        algorithm choice, lazy module loading and the calling thread's
-        cuDNN and cuBLAS handles happen here, not on the first request; a
-        thread that runs forwards warms up in that thread."""
-        self._run(self._sample_inputs(self.batch_size))
-        if self.device.type == 'cuda':
-            torch.cuda.synchronize(self.device)
+    def export_artifact(self, path):
+        """Write the whole predict graph at batch_size (input cast, the
+        serving model with its weights, float or int8, and the decode) as a
+        self-contained `torch.export` program (`.pt2`); it loads with
+        `load_artifact` or `ArtifactPredictor` without the model code and
+        runs on this Predictor's device. Its outputs are predict_crops'
+        dict. Returns path."""
+        inputs, _ = self._place_inputs(self._sample_inputs(self.batch_size))
+        with self._lock, torch.no_grad():
+            program = torch.export.export(_ServingForward(self), inputs,
+                                          strict=False)
+        torch.export.save(program, path)
+        return path
 
-    def aot_compile(self):
-        """Warm-up of the calling thread (`warm_up`), once. Returns the
-        forward."""
-        if not self._warm:
-            self.warm_up()
-            self._warm = True
-        return self._run
+    load_artifact = staticmethod(library.load_artifact)
+
+
+class ArtifactPredictor(_FixedBatch):
+    """Predictor surface over an `export_artifact` file (JAX's
+    ArtifactPredictor, serve.py:329-410): `batch_size`, `in_shapes` and
+    `out_shapes` are read back from the program, `predict_crops`,
+    `warm_up`, `_place_inputs`, `_run` and `aot_compile` (a CUDA graph of
+    the loaded program on the card) are the Predictor's, so
+    BatchingServer and the predict CLI serve the file with no model code
+    or checkpoint. The weights live in the program (`variables` and
+    `serve_variables` are None). The artifact runs on the device it was
+    exported on; asking for another raises."""
+
+    def __init__(self, path, device=None, mesh=None):
+        if mesh is not None:
+            raise NotImplementedError(
+                'ArtifactPredictor(mesh=...): data-parallel serving is not '
+                'ported yet (ROADMAP Queue 1 item 4)')
+        self.device = runtime.resolve_device(device)
+        program = torch.export.load(path)
+        vals = {n.name: n.meta.get('val') for n in program.graph.nodes}
+        sig = program.graph_signature
+        ins = [vals[name] for name in sig.user_inputs]
+        exported_on = ins[0].device
+        if (exported_on.type != self.device.type
+                or (exported_on.index is not None
+                    and self.device.index is not None
+                    and exported_on.index != self.device.index)):
+            raise ValueError(f'artifact {path} was exported on '
+                             f'{exported_on} and runs there only, not on '
+                             f'{self.device}')
+        self.in_shapes = tuple(tuple(x.shape) for x in ins)
+        self.out_shapes = tuple(tuple(vals[name].shape)
+                                for name in sig.user_outputs)
+        self._in_dtypes = tuple(x.dtype for x in ins)
+        self.batch_size = self.in_shapes[0][0]
+        self.variables = None                # weights live in the artifact
+        self.serve_variables = None
+        self._call = program.module()
+        self._init_serving()
+
+    def _sample_inputs(self, b):
+        return tuple(torch.ones((b,) + s[1:], dtype=d, device=self.device)
+                     for s, d in zip(self.in_shapes, self._in_dtypes))
+
+    def _place_inputs(self, inputs):
+        """Inputs on the device, edge-padded up to the artifact's baked
+        batch size (the program has exactly one shape); a larger batch
+        raises. Returns (inputs, real_batch)."""
+        inputs = tuple(torch.as_tensor(x).to(self.device) for x in inputs)
+        b = inputs[0].shape[0]
+        if b > self.batch_size:
+            raise ValueError(
+                f'batch of {b} rows exceeds the artifact\'s baked batch '
+                f'size {self.batch_size} — chunk requests (or re-export '
+                'with a larger batch_size)')
+        return _edge_pad(inputs, self.batch_size), b
+
+    def _forward_impl(self, *inputs):
+        return self._call(*inputs)
 
 
 class BatchingServer:
-    """Request micro-batching in front of a Predictor (serve.py:411):
-    single-crop requests are batched up to the predictor's batch size (or
-    until `max_delay_ms` passes), padded to the fixed shape, run through one
-    forward, and resolved through per-request futures.
+    """Request micro-batching in front of a Predictor or ArtifactPredictor
+    (serve.py:411): single-crop requests are batched up to the predictor's
+    batch size (or until `max_delay_ms` passes), padded to the fixed shape,
+    run through one forward (the CUDA graph of `aot_compile` on the card),
+    and resolved through per-request futures.
 
         server = BatchingServer(predictor, max_delay_ms=5.0)
         fut = server.submit(crop)              # (side_in, side_in, C)
@@ -249,9 +437,10 @@ class BatchingServer:
         self._lock = threading.Lock()
         self.served = 0
         self.batches = 0
-        # the worker warms up in its own thread before it takes requests
-        # (cuDNN and cuBLAS handles are per thread); the server is returned
-        # ready, or the warm-up's error is raised here
+        # the worker runs the predictor's aot_compile (the capture on the
+        # card, the warm-up on the CPU) in its own thread before it takes
+        # requests (cuDNN and cuBLAS handles are per thread); the server is
+        # returned ready, or the error is raised here
         self._ready = threading.Event()
         self._warm_error = None
         self._thread = threading.Thread(target=self._worker, daemon=True)
@@ -314,7 +503,7 @@ class BatchingServer:
     def _worker(self):
         device = self.predictor.device
         try:
-            self.predictor.warm_up()
+            self.predictor.aot_compile()
         except Exception as e:
             self._warm_error = e
             return
@@ -330,6 +519,10 @@ class BatchingServer:
                 # worker and wedging every later submit()
                 crops = torch.stack([torch.as_tensor(c).to(device)
                                      for c, _ in items])
+                # a live quantize_with_scales drops the float graph: the
+                # next batch captures the int8 forward here (idempotent
+                # otherwise)
+                self.predictor.aot_compile()
                 batch, _ = self.predictor._place_inputs((crops,))
                 out = self.predictor._run(batch)
                 host = {k: v.cpu().numpy() for k, v in out.items()}

@@ -1328,3 +1328,142 @@ def test_quantized_predictor_two_threads_equal_serial(int8_dev):
         for out in got[k]:
             for name in serial[k]:
                 np.testing.assert_array_equal(out[name], serial[k][name])
+
+
+# ------------------------------------------------ CUDA graph and artifacts
+
+
+def graph_predictor(dev, quantized, seed=7):
+    """A small half_acc rgb Predictor (-extra_channel: the stem kernel at
+    Cin 4) on the card, quantized when asked, and two batches of crops;
+    the first also calibrates."""
+    args = serve.default_args(model='resnet18', side_in=65, stride=32,
+                              depth=4, num_joints=5, half_acc=True,
+                              extra_channel=True)
+    p = serve.Predictor(args, 'rgb', batch_size=4, device=dev, seed=seed)
+    rng = np.random.RandomState(seed)
+    xs = [rng.randn(4, 65, 65, 4).astype(np.float32) for _ in range(2)]
+    if quantized:
+        p.quantize(xs[:1])
+    return p, xs
+
+
+def assert_same_answers(got, want):
+    assert set(got) == set(want)
+    for k in want:
+        assert np.all(np.isfinite(got[k]))
+        np.testing.assert_array_equal(got[k], want[k])
+
+
+@pytest.mark.parametrize('quantized', [False, True], ids=['bf16', 'int8'])
+def test_graph_replay_equals_eager(int8_dev, quantized):
+    """aot_compile captures the forward in one CUDA graph; its replays
+    answer as the eager forward bit for bit (the same kernels on the same
+    inputs), a ragged batch too, and make no wrapper call (the launch
+    counters stand still)."""
+    from pose_tpu_torch.ops import int8_conv as i8
+    p, xs = graph_predictor(int8_dev, quantized)
+    eager = [p.predict_crops(x) for x in xs] + [p.predict_crops(xs[0][:3])]
+    p.aot_compile()
+    assert p._graph is not None and p.aot_compile() == p._run
+    graph = p._graph
+    before = (stem.stem_conv.launches, i8.quantized_conv.launches)
+    got = [p.predict_crops(x) for x in xs] + [p.predict_crops(xs[0][:3])]
+    assert (stem.stem_conv.launches, i8.quantized_conv.launches) == before
+    assert p._graph is graph
+    for g, e in zip(got, eager):
+        assert_same_answers(g, e)
+
+
+def test_graphed_quantized_predictor_two_threads_equal_serial(int8_dev):
+    """Two threads replaying one graphed quantized Predictor at once: the
+    lock across copy-in, replay and clone keeps every answer equal to the
+    serial one."""
+    import threading
+
+    p, xs = graph_predictor(int8_dev, True, seed=8)
+    p.aot_compile()
+    serial = [p.predict_crops(x) for x in xs]
+    got, errors = [[], []], []
+
+    def serve_one(k):
+        try:
+            for _ in range(20):
+                got[k].append(p.predict_crops(xs[k]))
+        except BaseException as e:
+            errors.append(e)
+
+    threads = [threading.Thread(target=serve_one, args=(k,))
+               for k in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors
+    for k in range(2):
+        assert len(got[k]) == 20
+        for out in got[k]:
+            assert_same_answers(out, serial[k])
+
+
+def test_quantize_after_aot_compile_recaptures(int8_dev):
+    """quantize_with_scales drops the float graph; the next aot_compile
+    captures the int8 forward, which answers as a fresh Predictor
+    quantized with the same scales, eagerly."""
+    p, xs = graph_predictor(int8_dev, False, seed=9)
+    p.aot_compile()
+    float_graph = p._graph
+    scales = p.make_calibrator().update(xs[:1]).scales
+    p.quantize_with_scales(scales)
+    assert p._graph is None
+    p.aot_compile()
+    assert p._graph is not None and p._graph is not float_graph
+    fresh, _ = graph_predictor(int8_dev, False, seed=9)
+    fresh.quantize_with_scales(scales)
+    for x in xs:
+        assert_same_answers(p.predict_crops(x), fresh.predict_crops(x))
+
+
+def test_eager_quantized_conv_between_replays(int8_dev):
+    """The scratch trap: the graph's int8 convs quantize into buffers of
+    the graph's own, so an eager QuantizedConv call in the capturing thread
+    between two replays, at a larger input that grows the thread's eager
+    scratch, leaves the replay's answers unchanged, and tensors allocated
+    afterwards are not written by the replay."""
+    from pose_tpu_torch import quant
+    p, xs = graph_predictor(int8_dev, True, seed=10)
+    p.aot_compile()
+    first = p.predict_crops(xs[0])
+    conv = next(iter(quant.quantized_convs(p._quant_model).values()))
+    big = torch.randn((64, conv.geom.cin, 65, 65), device=int8_dev,
+                      dtype=torch.bfloat16)
+    with torch.inference_mode():
+        conv(big)
+    canaries = [torch.full((1 << 20,), 7, dtype=torch.uint8,
+                           device=int8_dev) for _ in range(8)]
+    again = p.predict_crops(xs[0])
+    torch.cuda.synchronize()
+    assert_same_answers(again, first)
+    for c in canaries:
+        assert bool((c == 7).all())
+
+
+@pytest.mark.parametrize('quantized', [False, True], ids=['bf16', 'int8'])
+def test_artifact_on_card_equals_eager(int8_dev, quantized, tmp_path):
+    """An artifact exported on the card loads and answers as the eager
+    Predictor, bit for bit, eagerly and under its own graph; another
+    device is refused."""
+    p, xs = graph_predictor(int8_dev, quantized, seed=11)
+    path = p.export_artifact(str(tmp_path / 'pose.pt2'))
+    want = [p.predict_crops(x) for x in xs]
+    art = serve.ArtifactPredictor(path, device=int8_dev)
+    assert art.in_shapes == ((4, 65, 65, 4),)
+    assert art.out_shapes == ((4, 5, 3), (4, 5, 2))
+    for x, w in zip(xs, want):
+        assert_same_answers(art.predict_crops(x), w)
+    art.aot_compile()
+    assert art._graph is not None
+    for x, w in zip(xs, want):
+        assert_same_answers(art.predict_crops(x), w)
+    with pytest.raises(ValueError, match='exported on cuda'):
+        serve.ArtifactPredictor(path, device='cpu')

@@ -13,7 +13,8 @@ port's predict.main(argv, device='cpu') on the same argv:
   (c) -depth_only -nexponent -to_depth (the depth student);
   (d) -do_fusion (both streams).
 Also JAX's flag validation with the same SystemExit text, -video, the
-best.pth pointer, and the parts not ported yet."""
+best.pth pointer, the part not ported yet (-mesh), the refused .jaxexport
+and a served .pt2."""
 
 import json
 import os
@@ -291,16 +292,37 @@ def test_optional_dependency_names_its_flag(fx, monkeypatch):
         predict.load_frames(types.SimpleNamespace(images=None, video='c'))
 
 
-@pytest.mark.parametrize('argv,item', [
-    (['-mesh', '2'], 'ROADMAP Queue 1 item 4'),
-    (['-model_path', 'pose.jaxexport'], 'ROADMAP Queue 1 item 3'),
-    (['-model_path', 'pose.pt2'], 'ROADMAP Queue 1 item 3')],
-    ids=['mesh', 'jaxexport', 'pt2'])
-def test_unported_parts_raise(fx, argv, item):
+@pytest.mark.parametrize('case', ['mesh', 'jaxexport', 'pt2'])
+def test_unported_parts_raise(fx, case):
+    """-mesh above 1 raises NotImplementedError naming its ROADMAP item; a
+    JAX .jaxexport -model_path is refused with a SystemExit that points to
+    the port's own artifacts; a .pt2 one (exported from the rgb
+    checkpoint at the run's batch size) serves, its records equal to the
+    checkpoint run's."""
     base = MODEL + ['-model_path', str(fx / 'model_rgb.pth'), '-images',
                     str(fx / 'frame_*.jpg')]
-    with pytest.raises(NotImplementedError, match=item):
-        predict.main(base + argv, device='cpu')
+    if case == 'mesh':
+        with pytest.raises(NotImplementedError,
+                           match='ROADMAP Queue 1 item 4'):
+            predict.main(base + ['-mesh', '2'], device='cpu')
+    elif case == 'jaxexport':
+        with pytest.raises(SystemExit, match=r'reads its own \.pt2 '
+                           r'artifacts.*needs JAX.*export_artifact'):
+            predict.main(base + ['-model_path', 'pose.jaxexport'],
+                         device='cpu')
+    else:
+        rgb = base + ['-joint_space', '-extra_channel', '-out',
+                      str(fx / 'unported_pt2.json')]
+        pt2 = serve.Predictor.from_checkpoint(
+            str(fx / 'model_rgb.pth'), serve.default_args(
+                model='resnet18', side_in=65, stride=32, depth=4,
+                num_joints=19, half_acc=False, joint_space=True,
+                extra_channel=True), batch_size=3,
+            device='cpu').export_artifact(str(fx / 'unported.pt2'))
+        got = predict.main(rgb + ['-model_path', pt2], device='cpu')
+        want = predict.main(rgb, device='cpu')
+        assert len(got['frames']) == 3
+        assert got == dict(want, model_path=pt2)
 
 
 def test_cuda_by_default(fx):
